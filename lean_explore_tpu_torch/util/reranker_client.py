@@ -1,0 +1,329 @@
+"""Cross-encoder reranker client: Qwen3-Reranker forwards in PyTorch
+(lean_explore_tpu/util/reranker_client.py).
+
+Same ``<Instruct>/<Query>/<Document>`` pair format and last-token
+true/false softmax as the JAX client. The serving path is
+``rerank_grouped``: each query's pairs share one prefix forward whose
+per-layer K/V the document suffixes attend to. The two-stage cascade
+(LEAN_EXPLORE_RERANK_CASCADE) is a later slice and raises here.
+"""
+
+import asyncio
+import logging
+import os
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from lean_explore_tpu_torch.models import qwen3 as qwen3_mod
+from lean_explore_tpu_torch.models.hf_loader import load_params
+from lean_explore_tpu_torch.models.tokenizer import (
+    bucket_batch,
+    bucket_length,
+    encode_batch,
+    load_tokenizer,
+)
+from lean_explore_tpu_torch.util.embedding_client import resolve_model_dir
+from lean_explore_tpu_torch.util.platform import resolve_device
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_INSTRUCTION = "Find relevant Lean 4 math declarations"
+DEFAULT_BATCH_SIZE = 64
+# Suffix-length buckets of the grouped path: with the prefix cached, the
+# suffix is all that is forwarded, and typical "name: informalization"
+# suffixes are 12-20 tokens.
+SUFFIX_BUCKETS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+# Query groups per grouped forward step (bounds the score tensor).
+GROUP_CHUNK = 16
+
+
+def format_pair(query: str, document: str, instruction: str = DEFAULT_INSTRUCTION) -> str:
+    """The pair template the reranker scores."""
+    return (
+        f"<Instruct>: {instruction}\n<Query>: {query}\n"
+        f"<Document>: {document}"
+    )
+
+
+class RerankerClient:
+    """Scores query-document pairs with P("true") from a causal LM."""
+
+    MIN_SHARED_PREFIX = 4  # tokens; below this the split costs more than it saves
+
+    def __init__(
+        self,
+        model_name: str = "Qwen/Qwen3-Reranker-0.6B",
+        *,
+        model_dir: str | Path | None = None,
+        max_length: int = 512,
+        instruction: str = DEFAULT_INSTRUCTION,
+        batch_size: int | None = None,
+        dtype: torch.dtype = torch.bfloat16,
+        device: str | torch.device | None = None,
+    ):
+        """Load tokenizer + params onto ``device`` (default CUDA).
+
+        Args:
+            model_name: HF id (reporting) or local path.
+            model_dir: Local checkpoint directory (see EmbeddingClient).
+            max_length: Pair truncation length (the engine passes 256).
+            instruction: Task instruction in the pair template.
+            batch_size: Falls back to LEAN_EXPLORE_RERANKER_BATCH_SIZE,
+                then 64.
+            dtype: Parameter dtype (bf16 serving, f32 parity).
+        """
+        resolved = Path(model_dir) if model_dir else resolve_model_dir(model_name)
+        if batch_size is not None and batch_size <= 0:
+            raise ValueError(f"batch_size must be positive, got {batch_size}")
+        env_batch = os.getenv("LEAN_EXPLORE_RERANKER_BATCH_SIZE")
+        logger.info("Loading reranker model %s from %s", model_name, resolved)
+        params, config = load_params(
+            resolved, dtype=dtype, device=resolve_device(device)
+        )
+        self._init(
+            params,
+            config,
+            load_tokenizer(resolved),
+            model_name=model_name,
+            model_dir=resolved,
+            max_length=max_length,
+            instruction=instruction,
+            batch_size=(
+                batch_size
+                if batch_size is not None
+                else (int(env_batch) if env_batch else DEFAULT_BATCH_SIZE)
+            ),
+        )
+
+    @classmethod
+    def from_components(
+        cls,
+        params,
+        config,
+        tokenizer,
+        *,
+        model_name: str = "in-memory",
+        model_dir=None,
+        max_length: int = 512,
+        instruction: str = DEFAULT_INSTRUCTION,
+        batch_size: int = 64,
+    ) -> "RerankerClient":
+        """A client around already-loaded params (on their device), config
+        and tokenizer: random-weight benchmarks and tests."""
+        self = object.__new__(cls)
+        self._init(
+            params, config, tokenizer, model_name=model_name,
+            model_dir=model_dir, max_length=max_length,
+            instruction=instruction, batch_size=batch_size,
+        )
+        return self
+
+    def _init(
+        self, params, config, tokenizer, *, model_name, model_dir, max_length,
+        instruction, batch_size,
+    ) -> None:
+        """Every attribute the scoring paths touch, in one place."""
+        self.model_name = model_name
+        self.model_dir = model_dir
+        self.max_length = max_length
+        self.instruction = instruction
+        self.batch_size = batch_size
+        self.tokenizer = tokenizer
+        self._tokenizer_lock = threading.Lock()
+        self.params, self.config = params, config
+        self.device = params["embed"].device
+        self.token_true_id = tokenizer.convert_tokens_to_ids("true")
+        self.token_false_id = tokenizer.convert_tokens_to_ids("false")
+        if self.token_true_id is None or self.token_false_id is None:
+            raise ValueError(
+                "Tokenizer lacks 'true'/'false' tokens required for "
+                "reranker scoring."
+            )
+
+    def _format_pair(self, query: str, document: str) -> str:
+        return format_pair(query, document, self.instruction)
+
+    def _tensor(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def _score_batch(self, batch) -> np.ndarray:
+        scores = qwen3_mod.rerank_scores(
+            self.params,
+            self.config,
+            self._tensor(batch.input_ids),
+            self._tensor(batch.attention_mask),
+            token_true=int(self.token_true_id),
+            token_false=int(self.token_false_id),
+        )
+        return scores.cpu().numpy()
+
+    def rerank_pairs_sync(self, queries: list[str], documents: list[str]) -> list[float]:
+        """Score pairs where each document has its own query: flat padded
+        batches, in length-sorted order so each batch pads to its own
+        bucket."""
+        if len(queries) != len(documents):
+            raise ValueError("queries and documents must align")
+        if not documents:
+            return []
+        pairs = [self._format_pair(q, d) for q, d in zip(queries, documents)]
+        order = sorted(range(len(pairs)), key=lambda i: len(pairs[i]))
+        scores = [0.0] * len(pairs)
+        for start in range(0, len(order), self.batch_size):
+            chunk = order[start : start + self.batch_size]
+            with self._tokenizer_lock:
+                batch = encode_batch(
+                    self.tokenizer,
+                    [pairs[i] for i in chunk],
+                    max_length=self.max_length,
+                )
+            for i, s in zip(chunk, self._score_batch(batch)):
+                scores[i] = float(s)
+        return scores
+
+    async def rerank_pairs(self, queries: list[str], documents: list[str]) -> list[float]:
+        return await asyncio.to_thread(self.rerank_pairs_sync, queries, documents)
+
+    def rerank_grouped_sync(
+        self, queries: list[str], docs_grouped: list[list[str]]
+    ) -> list[list[float]]:
+        """Score each query's documents with shared-prefix KV reuse.
+
+        The shared prefix is the longest common *token* prefix of the
+        group's pairs; it runs once per query through ``prefix_kv``, and the
+        document suffixes attend to its cached K/V at their true positions.
+        Groups whose shared prefix is under MIN_SHARED_PREFIX tokens go
+        through the flat path. LEAN_EXPLORE_RERANK_PREFIX=0 sends every
+        group through the flat path.
+        """
+        if len(queries) != len(docs_grouped):
+            raise ValueError("queries and docs_grouped must align")
+        if os.getenv("LEAN_EXPLORE_RERANK_PREFIX", "1") == "0":
+            flat_q = [q for q, docs in zip(queries, docs_grouped) for _ in docs]
+            flat = self.rerank_pairs_sync(flat_q, [d for docs in docs_grouped for d in docs])
+            out, start = [], 0
+            for docs in docs_grouped:
+                out.append(flat[start : start + len(docs)])
+                start += len(docs)
+            return out
+
+        results: list[list[float]] = [[] for _ in queries]
+        # group records: (out_idx, shared_prefix_tokens, suffix_token_lists)
+        records: list[tuple[int, list[int], list[list[int]]]] = []
+        fallback_q: list[str] = []
+        fallback_d: list[str] = []
+        fallback_slots: list[tuple[int, int]] = []
+
+        for gi, (query, docs) in enumerate(zip(queries, docs_grouped)):
+            if not docs:
+                continue
+            pairs = [self._format_pair(query, d) for d in docs]
+            with self._tokenizer_lock:
+                token_lists = self.tokenizer(
+                    pairs, truncation=True, max_length=self.max_length
+                )["input_ids"]
+            # Longest common token prefix: one slice compare per row in the
+            # common case, bisection on a mismatch.
+            row0 = token_lists[0]
+            shared = len(row0)
+            for row in token_lists[1:]:
+                limit = min(shared, len(row))
+                if row[:limit] == row0[:limit]:
+                    shared = limit
+                    continue
+                lo, hi = 0, limit
+                while lo < hi:
+                    mid = (lo + hi + 1) // 2
+                    if row[:mid] == row0[:mid]:
+                        lo = mid
+                    else:
+                        hi = mid - 1
+                shared = lo
+                if shared == 0:
+                    break
+            shared = min(shared, min(len(row) for row in token_lists) - 1)
+            if shared < self.MIN_SHARED_PREFIX:
+                for pos, doc in enumerate(docs):
+                    fallback_q.append(query)
+                    fallback_d.append(doc)
+                    fallback_slots.append((gi, pos))
+                results[gi] = [0.0] * len(docs)
+                continue
+            records.append((gi, row0[:shared], [row[shared:] for row in token_lists]))
+
+        pad_id = self.tokenizer.pad_token_id
+        if pad_id is None:
+            pad_id = self.tokenizer.eos_token_id or 0
+
+        # Partition groups by suffix-length bucket (a group's bucket is its
+        # longest document); D pads to the partition's max document count.
+        by_bucket: dict[int, list] = {}
+        for rec in records:
+            s_bucket = bucket_length(
+                max(len(sfx) for sfx in rec[2]), self.max_length, buckets=SUFFIX_BUCKETS
+            )
+            by_bucket.setdefault(s_bucket, []).append(rec)
+
+        for s_bucket, recs in sorted(by_bucket.items()):
+            chunk = min(GROUP_CHUNK, bucket_batch(len(recs)))
+            g_pad = -(-len(recs) // chunk) * chunk
+            d_pad = max(len(r[2]) for r in recs)
+            p_pad = bucket_length(max(len(r[1]) for r in recs), self.max_length)
+            prefix_ids = np.full((g_pad, p_pad), pad_id, dtype=np.int32)
+            prefix_mask = np.zeros((g_pad, p_pad), dtype=np.int32)
+            suffix_ids = np.full((g_pad, d_pad, s_bucket), pad_id, dtype=np.int32)
+            suffix_mask = np.zeros((g_pad, d_pad, s_bucket), dtype=np.int32)
+            pos_offset = np.zeros((g_pad,), dtype=np.int32)
+            for row, (_gi, head, suffixes) in enumerate(recs):
+                shared = len(head)
+                prefix_ids[row, :shared] = head
+                prefix_mask[row, :shared] = 1
+                pos_offset[row] = shared
+                for di, sfx in enumerate(suffixes):
+                    sfx = sfx[:s_bucket]
+                    suffix_ids[row, di, : len(sfx)] = sfx
+                    suffix_mask[row, di, : len(sfx)] = 1
+            # Pad rows/docs keep one valid token so softmax and pooling
+            # indices stay benign; their scores are discarded.
+            prefix_mask[len(recs) :, 0] = 1
+            flat_mask = suffix_mask.reshape(g_pad * d_pad, s_bucket)
+            flat_mask[~flat_mask.any(axis=1), 0] = 1
+
+            pmask = self._tensor(prefix_mask)
+            pk, pv = qwen3_mod.prefix_kv(
+                self.params, self.config, self._tensor(prefix_ids), pmask
+            )
+            scores = qwen3_mod.rerank_scores_grouped(
+                self.params,
+                self.config,
+                pk,
+                pv,
+                pmask,
+                self._tensor(suffix_ids),
+                self._tensor(suffix_mask),
+                self._tensor(pos_offset),
+                token_true=int(self.token_true_id),
+                token_false=int(self.token_false_id),
+                group_chunk=chunk,
+            ).cpu().numpy()
+            for row, (gi, _head, suffixes) in enumerate(recs):
+                results[gi] = [float(s) for s in scores[row, : len(suffixes)]]
+
+        if fallback_q:
+            flat = self.rerank_pairs_sync(fallback_q, fallback_d)
+            for (gi, pos), score in zip(fallback_slots, flat):
+                results[gi][pos] = score
+        return results
+
+    async def rerank_grouped(
+        self, queries: list[str], docs_grouped: list[list[str]]
+    ) -> list[list[float]]:
+        if os.getenv("LEAN_EXPLORE_RERANK_CASCADE"):
+            raise NotImplementedError(
+                "LEAN_EXPLORE_RERANK_CASCADE: the two-stage rerank is not "
+                "ported yet; unset it to serve the full grouped rerank"
+            )
+        return await asyncio.to_thread(self.rerank_grouped_sync, queries, docs_grouped)
+

@@ -1,0 +1,90 @@
+"""Import hygiene of the port: its serving path loads no JAX and none of the
+packages the card's machine lacks.
+
+A fresh interpreter imports the port, runs a CPU search through
+``Service.search_batch`` (tiny random weights, a WordLevel tokenizer, a
+BM25 + dense artifact set built in memory), and then reports which of the
+forbidden modules are in ``sys.modules``.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = (
+    "jax", "lean_explore_tpu", "transformers", "tokenizers", "pydantic",
+    "safetensors",
+)
+
+SCRIPT = r"""
+import asyncio, json, sys, tempfile
+import numpy as np
+import torch
+
+from lean_explore_tpu_torch import Service, SearchEngine
+from lean_explore_tpu_torch.index.artifacts import IndexArtifacts, build_bm25_name_indices
+from lean_explore_tpu_torch.index.dense import DenseIndex
+from lean_explore_tpu_torch.models import qwen3
+from lean_explore_tpu_torch.models.store import Declaration, DeclarationStore
+from lean_explore_tpu_torch.models.tokenizer import WordLevelTokenizer
+from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+from lean_explore_tpu_torch.util.reranker_client import RerankerClient
+
+words = ["nat", "add", "comm", "list", "map", "true", "false", ":", "<", ">"]
+vocab = {"<pad>": 0, "<unk>": 1, "<eos>": 2}
+for w in words:
+    vocab.setdefault(w, len(vocab))
+tokenizer = WordLevelTokenizer(
+    {"model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"},
+     "pre_tokenizer": {"type": "Whitespace"}},
+    pad_token="<pad>", eos_token="<eos>", unk_token="<unk>",
+)
+config = qwen3.Qwen3Config(
+    vocab_size=len(vocab), hidden_size=32, num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+    intermediate_size=64,
+)
+gen = torch.Generator().manual_seed(0)
+embedder = EmbeddingClient.from_components(
+    qwen3.init_params(config, gen, device="cpu"), config, tokenizer, batch_size=8
+)
+reranker = RerankerClient.from_components(
+    qwen3.init_params(config, gen, device="cpu"), config, tokenizer, max_length=64
+)
+names = [f"Nat.{a}_{b}{i}" for i, (a, b) in enumerate(
+    [(x, y) for x in words[:5] for y in words[:5]])]
+tmp = tempfile.mkdtemp()
+store = DeclarationStore(f"{tmp}/declarations.db", create=True)
+store.insert_many([
+    Declaration(id=i + 1, name=n, module="M", source_text=n, source_link="l",
+                informalization=f"nat add {n}")
+    for i, n in enumerate(names)
+])
+spaced, raw = build_bm25_name_indices(names)
+ids = np.arange(1, len(names) + 1)
+dense = DenseIndex.build(
+    np.random.default_rng(0).standard_normal((len(names), 32)), ids, device="cpu"
+)
+engine = SearchEngine(
+    tmp, store=store,
+    artifacts=IndexArtifacts(dense, spaced, raw, ids, {}),
+    embedding_client=embedder, reranker_client=reranker,
+    preload_metadata=True, device="cpu",
+)
+out = asyncio.run(Service(engine).search_batch(["nat add", "list map comm"]))
+assert all(r.count > 0 for r in out), [r.count for r in out]
+print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
+"""
+
+
+def test_serving_path_imports_no_forbidden_module():
+    code = f"FORBIDDEN = {FORBIDDEN!r}\n" + SCRIPT
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert loaded == [], f"the port's serving path imported {loaded}"
