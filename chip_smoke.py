@@ -7,14 +7,20 @@ Phases, each announced before it starts and timed after it ends:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of ``lean_explore_tpu_torch/csrc`` with nvcc;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, and time both beside the card's bound
-   and one PyTorch library call for the same function;
+3. hold each kernel (bin_topk, bin_topk_int8, windowed_scores) against its
+   plain PyTorch version on the card, at the shapes the serving path gives
+   it, and time both beside the card's bound and one PyTorch library call
+   for the same function;
 4. drive ``Service.search_batch`` of the port at full width: a 300,000-row
    synthetic store, a 300,000 x 1024 bf16 dense index on the card, and two
    clients of the Qwen3-0.6B geometry with random bf16 weights from a seed,
-   one warm batch then two timed batches of 128 queries. The launch count of
-   every kernel is set to 0 before the timed batches and read after them.
+   one warm batch then two timed batches of 128 queries;
+   4b. the same service over the same corpus quantized to int8
+   (``DenseIndex.build(dtype="int8")``), one warm and two timed batches;
+   4c. ``DenseIndex.search(method="windowed")`` over the bf16 index with
+   the serving path's query embeddings of two batches.
+   Every kernel's launch count is set to 0 just before each of these
+   paths is driven and read just after it.
 
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure raises, so the run exits non-zero with its
@@ -23,6 +29,7 @@ traceback and prints neither line. Without a CUDA device it exits 2 at once.
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,6 +42,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak, same source
+INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak, same source
 
 
 def log(msg: str) -> None:
@@ -73,9 +81,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound_ms(
+    bytes_moved: float, ops: float, ops_per_s: float = BF16_FLOP_PER_S
+) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -190,9 +200,7 @@ def check_bin_topk(device) -> dict:
     # One counted launch is one wrapper call: the carry kernel over
     # `groups` slices of the super-tiles, then, when groups > 1, a max over
     # the groups' partial carries (groups * bins * B f32 read once).
-    groups = K._supertile_groups(
-        device, (bins // K.ROW_MULTIPLE) * -(-batch // 64), -(-n_pad // bins)
-    )
+    groups = K.supertile_groups(device, n_pad, batch, bins)
     per_launch = ["bin_topk_carry_kernel"] + (
         ["max_over_groups_kernel"] if groups > 1 else []
     )
@@ -213,6 +221,274 @@ def check_bin_topk(device) -> dict:
         "launches": None,
         "kernels_per_launch": per_launch,
         "groups": groups,
+        "max_abs_err": err,
+        "ms": ms,
+        "with_epilogue_ms": with_epilogue_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": library_ms,
+    }
+
+
+# ----------------------------------------------------------------------
+# Phase 3: K2 (bin_topk_int8) against its plain version
+# ----------------------------------------------------------------------
+
+
+def _quantized_unit_rows(n_real: int, n_pad: int, d: int, gen, device):
+    """int8 codes [n_pad, d] and f32 scales [n_pad] of n_real unit rows,
+    pad rows zero codes and scale 1 (as DenseIndex.build pads them), plus
+    the f32 rows themselves."""
+    from lean_explore_tpu_torch.ops.quant import quantize_rows_device
+
+    x = torch.randn(n_real, d, generator=gen, device=device)
+    x = x / x.norm(dim=1, keepdim=True)
+    codes = torch.zeros(n_pad, d, dtype=torch.int8, device=device)
+    scales = torch.ones(n_pad, dtype=torch.float32, device=device)
+    codes[:n_real], scales[:n_real] = quantize_rows_device(x)
+    return codes, scales, x
+
+
+def _check_bin_topk_int8_case(name, queries, codes, scales, n_valid, k, bins) -> float:
+    """Kernel vs plain on one input. The int8 products are exact integers
+    and the kernel rounds each f32 step as the twin does, so the two packed
+    carries must be equal bit for bit; the max difference is printed and
+    returned (0). Every returned row must be real (< n_valid) and carry its
+    own calibrated score within one packing quantum (provenance); a
+    quantized self-match can score a little above 1, where s + 3 lies in
+    [4, 8) and the quantum is 2^steal_bits ulps of that binade, 2^-21."""
+    from lean_explore_tpu_torch.ops import bin_topk_int8 as K8
+    from lean_explore_tpu_torch.ops.bin_topk import steal_bits_for, unpack_topk
+    from lean_explore_tpu_torch.ops.quant import quantize_rows_device
+
+    steal = steal_bits_for(codes.shape[0], bins)
+    q_codes, q_scales = quantize_rows_device(queries)
+    packed_kernel = K8.bin_topk_int8_carry(q_codes, q_scales, codes, scales, n_valid, bins)
+    packed_plain = K8.bin_topk_int8_carry_plain(
+        q_codes, q_scales, codes, scales, n_valid, bins, steal
+    )
+    torch.cuda.synchronize()
+    err = float((packed_kernel - packed_plain).abs().max())
+    if not torch.equal(packed_kernel.view(torch.int32), packed_plain.view(torch.int32)):
+        raise AssertionError(f"{name}: int8 carry differs from plain by up to {err}")
+    ks, ki = unpack_topk(packed_kernel, k=k, steal_bits=steal, bins=bins)
+    if int(ki.max()) >= n_valid or int(ki.min()) < 0:
+        raise AssertionError(f"{name}: a pad or negative row was selected")
+    rows = ki.long()
+    raw = torch.einsum(
+        "bd,bkd->bk", q_codes.float(), codes[rows].float()
+    )  # exact integer products of the returned rows
+    true = raw * scales[rows] * q_scales[:, None]
+    quantum = 2.0 ** (steal - 21)
+    prov = float((true - ks).abs().max())
+    if not prov <= quantum:
+        raise AssertionError(f"{name}: provenance error {prov} > {quantum}")
+    log(
+        f"  {name}: B={queries.shape[0]} N={codes.shape[0]} n_valid={n_valid} "
+        f"k={k} bins={bins} carry bit-identical to plain (max diff {err:.3g}); "
+        f"provenance error {prov:.3g} (quantum {quantum:.3g})"
+    )
+    return err
+
+
+def check_bin_topk_int8(device) -> dict:
+    from lean_explore_tpu_torch.ops import bin_topk_int8 as K8
+    from lean_explore_tpu_torch.ops.bin_topk import steal_bits_for, supertile_groups
+    from lean_explore_tpu_torch.ops.quant import quantize_rows_device
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    n_real, dim, batch, k, bins = 300_000, 1024, 128, 1000, 4096
+    n_pad = -(-n_real // 512) * 512
+    codes, scales, rows = _quantized_unit_rows(n_real, n_pad, dim, gen, device)
+    q = torch.randn(batch, dim, generator=gen, device=device)
+    q = q / q.norm(dim=1, keepdim=True)
+    # Planted exact matches: one mid-corpus, one in the partial final
+    # super-tile; each must come back first.
+    q[0] = rows[123_457]
+    q[1] = rows[n_real - 5]
+    del rows
+
+    err = _check_bin_topk_int8_case("serving shape", q, codes, scales, n_real, k, bins)
+    _, top = K8.bin_topk_int8(q, codes, scales, n_real, k=k, bins=bins)
+    if int(top[0, 0]) != 123_457 or int(top[1, 0]) != n_real - 5:
+        raise AssertionError("int8: planted exact matches were not ranked first")
+    err = max(err, _check_bin_topk_int8_case("B=1", q[:1], codes, scales, n_real, k, bins))
+    n_part = 3 * 4096 + 1024
+    err = max(
+        err,
+        _check_bin_topk_int8_case(
+            "partial final super-tile", q, codes[:n_part], scales[:n_part], n_part, k, bins
+        ),
+    )
+    # Padding never selected: every real score is negative, pad rows pack 0.
+    n_small, n_valid_small = 8192, 5000
+    neg_codes, neg_scales, _ = _quantized_unit_rows(n_valid_small, n_small, dim, gen, device)
+    neg_codes[:n_valid_small] = -neg_codes[:n_valid_small].abs()
+    pos = torch.randn(batch, dim, generator=gen, device=device).abs()
+    pos = pos / pos.norm(dim=1, keepdim=True)
+    err = max(
+        err,
+        _check_bin_topk_int8_case(
+            "padding never selected", pos, neg_codes, neg_scales, n_valid_small, k, bins
+        ),
+    )
+
+    reps = 20
+    q_codes, q_scales = quantize_rows_device(q)
+    ms = cuda_ms(
+        lambda: K8.bin_topk_int8_carry(q_codes, q_scales, codes, scales, n_real, bins), reps
+    )
+    with_epilogue_ms = cuda_ms(
+        lambda: K8.bin_topk_int8(q, codes, scales, n_real, k=k, bins=bins), reps
+    )
+    steal = steal_bits_for(n_pad, bins)
+    plain_ms = cuda_ms(
+        lambda: K8.bin_topk_int8_carry_plain(
+            q_codes, q_scales, codes, scales, n_real, bins, steal
+        ),
+        3,
+    )
+    # Yardstick the port never calls: cuBLASLt's int8 GEMM, the same scaling
+    # and an exact top-k over [B, N].
+    real_t = codes[:n_real].T
+
+    def library():
+        raw = torch._int_mm(q_codes, real_t)
+        scores = raw.float() * q_scales[:, None] * scales[None, :n_real]
+        return torch.topk(scores, k, dim=1)
+
+    library_ms = cuda_ms(library, reps)
+    bytes_moved = (
+        codes.numel() + scales.numel() * 4 + q_codes.numel() + batch * 4
+        + bins * batch * 4
+    )
+    ops = 2.0 * n_pad * batch * dim
+    b_ms, b_by = bound_ms(bytes_moved, ops, INT8_OP_PER_S)
+    groups = supertile_groups(device, n_pad, batch, bins)
+    per_launch = ["bin_carry_kernel<Int8Product>"] + (
+        ["max_over_groups_kernel"] if groups > 1 else []
+    )
+    log(
+        f"  bin_topk_int8 carry kernel {ms:.4f} ms (with quantisation and top-k "
+        f"epilogue {with_epilogue_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+        f"torch._int_mm + scaling + torch.topk {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} "
+        f"({bytes_moved / 1e6:.1f} MB, {ops / 1e9:.1f} GOP); one launch runs "
+        f"{per_launch} with groups={groups}"
+    )
+    return {
+        "name": "bin_topk_int8",
+        "route": "cuda",
+        "source": "lean_explore_tpu_torch/csrc/bin_topk_int8.cu",
+        "replaces": "lean_explore_tpu/ops/pallas_retrieval.py:308",
+        "launches": None,
+        "kernels_per_launch": per_launch,
+        "groups": groups,
+        "max_abs_err": err,
+        "ms": ms,
+        "with_epilogue_ms": with_epilogue_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": library_ms,
+    }
+
+
+# ----------------------------------------------------------------------
+# Phase 3: K3 (windowed_scores) against its plain version
+# ----------------------------------------------------------------------
+
+
+def _check_windowed_topk(name, scores, rows, want_scores, want_rows, exact_t, tol) -> int:
+    """Windowed top-k against the exact top-k of the plain f32 scores:
+    scores agree position by position within tol, and where an id
+    differs, its exact score lies within tol of the one it replaced (a
+    near tie). Returns the number of differing ids."""
+    err = float((scores - want_scores).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{name}: score error {err} > {tol}")
+    differ = rows.long() != want_rows
+    n_differ = int(differ.sum())
+    if n_differ:
+        got_exact = torch.gather(exact_t.T, 1, rows.long())
+        gap = float((got_exact[differ] - want_scores[differ]).abs().max())
+        if not gap <= tol:
+            raise AssertionError(f"{name}: {n_differ} ids differ with gap {gap} > {tol}")
+    log(f"  {name}: max score error {err:.3g} (tol {tol:.3g}); ids differing at near ties {n_differ}")
+    return n_differ
+
+
+def check_windowed(device) -> dict:
+    from lean_explore_tpu_torch.ops import windowed as W
+
+    gen = torch.Generator(device=device).manual_seed(20)
+    n_real, dim, batch, window = 300_000, 1024, 128, 8
+    n_pad = -(-n_real // 512) * 512
+    corpus = torch.zeros(n_pad, dim, dtype=torch.bfloat16, device=device)
+    corpus[:n_real] = _unit_rows(n_real, dim, gen, device)
+    q = _unit_rows(batch, dim, gen, device).float()
+    # Tolerance: bf16 inputs are exact in f32, so kernel and plain differ
+    # only in the order of the f32 sums: within twice the f32 dot-product
+    # error bound of unit rows of depth D.
+    tol = 2.0 * dim * 2.0**-24
+    scores_t, wmax_t = W.fused_scores_wmax(q, corpus, n_real, window)
+    plain_s, plain_w = W.fused_scores_wmax_plain(q, corpus, n_real, window)
+    torch.cuda.synchronize()
+    err = 0.0
+    for label, got, want in (("scores_t", scores_t, plain_s), ("wmax_t", wmax_t, plain_w)):
+        if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+            raise AssertionError(f"windowed: {label} masks differ from plain")
+        finite = torch.isfinite(want)
+        e = float((got[finite] - want[finite]).abs().max())
+        if not e <= tol:
+            raise AssertionError(f"windowed: {label} error {e} > {tol}")
+        err = max(err, e)
+    log(
+        f"  windowed_scores: N={n_pad} n_valid={n_real} B={batch} W={window} "
+        f"scores_t and wmax_t max_abs_err={err:.3g} (tol {tol:.3g})"
+    )
+    exact_t = plain_s  # the plain f32 scores, pad rows at -inf
+    for k in (10, 1000):
+        want_s, want_i = torch.topk(exact_t.T, k, dim=1)
+        got_s, got_i = W.windowed_topk(q, corpus, n_real, k=k, window=window)
+        _check_windowed_topk(
+            f"windowed_topk k={k} vs exact torch.topk", got_s, got_i, want_s, want_i,
+            exact_t, tol,
+        )
+    del plain_s, plain_w, exact_t
+
+    reps = 20
+    ms = cuda_ms(lambda: W.fused_scores_wmax(q, corpus, n_real, window), reps)
+    with_epilogue_ms = cuda_ms(
+        lambda: W.windowed_topk(q, corpus, n_real, k=1000, window=window), reps
+    )
+    plain_ms = cuda_ms(lambda: W.fused_scores_wmax_plain(q, corpus, n_real, window), 3)
+    q_bf16 = q.to(torch.bfloat16)
+
+    def library():  # yardstick the port never calls
+        scores = q_bf16 @ corpus.T
+        return scores, scores.view(batch, n_pad // window, window).amax(dim=2)
+
+    library_ms = cuda_ms(library, reps)
+    bytes_moved = (
+        n_pad * dim * 2 + batch * dim * 2 + n_pad * batch * 4
+        + (n_pad // window) * batch * 4
+    )
+    flops = 2.0 * n_pad * batch * dim
+    b_ms, b_by = bound_ms(bytes_moved, flops)
+    log(
+        f"  windowed_scores kernel {ms:.4f} ms (with the k=1000 selection "
+        f"{with_epilogue_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+        f"q @ corpus.T + window amax {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"by {b_by} ({bytes_moved / 1e6:.1f} MB)"
+    )
+    return {
+        "name": "windowed_scores",
+        "route": "cuda",
+        "source": "lean_explore_tpu_torch/csrc/windowed_scores.cu",
+        "replaces": "lean_explore_tpu/ops/pallas_retrieval.py:60",
+        "launches": None,
         "max_abs_err": err,
         "ms": ms,
         "with_epilogue_ms": with_epilogue_ms,
@@ -261,10 +537,14 @@ def main() -> int:
                     log(f"  {name}: {line.strip()}")
 
     with Phase("kernels against their plain versions"):
-        kernels = [check_bin_topk(device)]
+        kernels = [
+            check_bin_topk(device),
+            check_bin_topk_int8(device),
+            check_windowed(device),
+        ]
 
     if not args.kernels:
-        with Phase("Service.search_batch at full width"):
+        with Phase("serving paths at full width"):
             run_service(device, kernels, card)
 
     log(json.dumps({"kernels": kernels}))
@@ -431,19 +711,57 @@ def check_grouped_rerank_f32(device) -> float:
     return err
 
 
-def build_service(device, tmp: str, n_rows: int = N_ROWS):
+def seeded_corpus(device, n_rows: int, dim: int) -> torch.Tensor:
+    """Unit rows [n_rows, dim] f32 on the card from seed 2: the dense corpus
+    of every serving phase, whatever its dtype on the card."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    corpus = torch.randn(n_rows, dim, generator=gen, device=device)
+    return corpus / corpus.norm(dim=1, keepdim=True)
+
+
+@dataclasses.dataclass
+class Serving:
+    """The serving set-up at full width: store, BM25 name indices with a
+    bf16 dense index (``artifacts``), and the two clients."""
+
+    tmp: str
+    device: torch.device
+    store: object
+    artifacts: object
+    embedder: object
+    reranker: object
+
+    def service(self, dense=None):
+        """A Service over this set-up, with ``dense`` in place of the bf16
+        index when given."""
+        from lean_explore_tpu_torch.search.engine import SearchEngine
+        from lean_explore_tpu_torch.search.service import Service
+
+        artifacts = self.artifacts
+        if dense is not None:
+            artifacts = dataclasses.replace(artifacts, dense=dense)
+        engine = SearchEngine(
+            self.tmp,
+            store=self.store,
+            artifacts=artifacts,
+            embedding_client=self.embedder,
+            reranker_client=self.reranker,
+            preload_metadata=True,
+            device=self.device,
+        )
+        return Service(engine)
+
+
+def build_service(device, tmp: str, n_rows: int = N_ROWS) -> Serving:
     """The serving set-up at full width in ``tmp``: synthetic store, BM25
     name indices, a bf16 dense index on the card and two clients of the
-    Qwen3-0.6B geometry with random bf16 weights from seeds. Returns
-    (service, store, dense, embedder)."""
+    Qwen3-0.6B geometry with random bf16 weights from seeds."""
     from lean_explore_tpu_torch.index.artifacts import (
         IndexArtifacts,
         build_bm25_name_indices,
     )
     from lean_explore_tpu_torch.index.dense import DenseIndex
     from lean_explore_tpu_torch.models import qwen3
-    from lean_explore_tpu_torch.search.engine import SearchEngine
-    from lean_explore_tpu_torch.search.service import Service
     from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
     from lean_explore_tpu_torch.util.reranker_client import RerankerClient
 
@@ -457,10 +775,8 @@ def build_service(device, tmp: str, n_rows: int = N_ROWS):
 
     t = time.perf_counter()
     config = qwen06b_config()
-    gen = torch.Generator(device=device).manual_seed(2)
-    corpus = torch.randn(n_rows, config.hidden_size, generator=gen, device=device)
-    corpus = (corpus / corpus.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     ids = np.arange(1, n_rows + 1)
+    corpus = seeded_corpus(device, n_rows, config.hidden_size).to(torch.bfloat16)
     dense = DenseIndex(corpus, ids, normalized=True)
     del corpus
     embed_params = qwen3.init_params(
@@ -481,50 +797,66 @@ def build_service(device, tmp: str, n_rows: int = N_ROWS):
         max_length=256, instruction="find relevant lean 4 math declarations",
         batch_size=BATCH,
     )
-    engine = SearchEngine(
-        tmp,
-        store=store,
-        artifacts=IndexArtifacts(
-            dense=dense, bm25_spaced=bm25_spaced, bm25_raw=bm25_raw,
-            bm25_ids=ids, manifest={"smoke": True},
-        ),
-        embedding_client=embedder,
-        reranker_client=reranker,
-        preload_metadata=True,
-        device=device,
+    artifacts = IndexArtifacts(
+        dense=dense, bm25_spaced=bm25_spaced, bm25_raw=bm25_raw,
+        bm25_ids=ids, manifest={"smoke": True},
     )
     torch.cuda.synchronize()
     log(
         f"  dense index {tuple(dense.embeddings.shape)} bf16 on the card, "
-        f"two 0.6B-geometry clients, preloaded engine in "
-        f"{time.perf_counter() - t:.1f} s"
+        f"two 0.6B-geometry clients in {time.perf_counter() - t:.1f} s"
     )
-    return Service(engine), store, dense, embedder
+    return Serving(tmp, device, store, artifacts, embedder, reranker)
 
 
-def run_service(device, kernels, card) -> None:
-    from lean_explore_tpu_torch import native
-    from lean_explore_tpu_torch.ops import bin_topk as K
+def launch_counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from lean_explore_tpu_torch.ops import bin_topk, bin_topk_int8, windowed
+
+    return {
+        "bin_topk": bin_topk.bin_topk_carry,
+        "bin_topk_int8": bin_topk_int8.bin_topk_int8_carry,
+        "windowed_scores": windowed.fused_scores_wmax,
+    }
+
+
+class CountLaunches:
+    """Sets every kernel's launch count to 0 on entry and reads them all
+    on exit into ``self.counts``."""
+
+    def __enter__(self):
+        for wrapper in launch_counters().values():
+            wrapper.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = {n: w.launches for n, w in launch_counters().items()}
+        return False
+
+
+def expect_launches(path: str, counts: dict, kernel: str, at_least: int) -> None:
+    """``kernel`` launched at least ``at_least`` times on ``path`` and no
+    other kernel launched there."""
+    if counts[kernel] < at_least:
+        raise AssertionError(f"{path}: {kernel} launched {counts[kernel]} times")
+    others = {n: c for n, c in counts.items() if n != kernel and c}
+    if others:
+        raise AssertionError(f"{path}: other kernels launched: {others}")
+
+
+def drive_service(service, store, label: str, kernel: str, card: str) -> dict:
+    """One warm batch, then two timed batches of 128 with every launch
+    count set to 0 before them; returns the counts read after them."""
     from lean_explore_tpu_torch.util.profiling import StageTimings
 
-    err = check_grouped_rerank_f32(device)
-    log(f"  grouped rerank == flat rerank in f32 on the card: max diff {err:.3g}")
-    # The lexical and fuse stages run in native/lexcore.cpp when it builds
-    # and in numpy otherwise; the stage times below depend on which.
-    lexcore = native.load_lexcore() is not None
-    log(f"  host route: lexcore native library loaded = {lexcore}")
+    t = time.perf_counter()
+    warm = asyncio.run(service.search_batch(queries_for(999)))
+    log(f"  {label}: warm batch of {BATCH}: {time.perf_counter() - t:.2f} s")
+    check_results(warm, store)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        service, store, dense, embedder = build_service(device, tmp)
-
-        t = time.perf_counter()
-        warm = asyncio.run(service.search_batch(queries_for(999)))
-        log(f"  warm batch of {BATCH}: {time.perf_counter() - t:.2f} s")
-        check_results(warm, store)
-
-        K.bin_topk_carry.launches = 0
-        reps = 2
-        totals: dict[str, float] = {}
+    reps = 2
+    totals: dict[str, float] = {}
+    with CountLaunches() as launched:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for rep in range(reps):
@@ -534,25 +866,100 @@ def run_service(device, kernels, card) -> None:
                 totals[stage] = totals.get(stage, 0.0) + ms
         torch.cuda.synchronize()
         elapsed = (time.perf_counter() - t0) / reps
-        launches = K.bin_topk_carry.launches
-        check_results(out, store)
-        if launches < reps:
-            raise AssertionError(
-                f"bin_topk launched {launches} times in {reps} serving batches"
-            )
-        for forbidden in ("jax", "lean_explore_tpu"):
-            if forbidden in sys.modules:
-                raise AssertionError(f"{forbidden} was imported on the serving path")
-        kernels[0]["launches"] = launches
+    check_results(out, store)
+    expect_launches(label, launched.counts, kernel, reps)
+    for forbidden in ("jax", "lean_explore_tpu"):
+        if forbidden in sys.modules:
+            raise AssertionError(f"{forbidden} was imported on the serving path")
+    stage_ms = {k: round(v / reps, 2) for k, v in totals.items()}
+    log(
+        f"  {label}: {BATCH / elapsed:.2f} q/s, {elapsed * 1000:.1f} ms per batch "
+        f"of {BATCH}; stage ms {stage_ms}; launches {launched.counts}; {card}"
+    )
+    return launched.counts
 
-        recall = dense_recall_at_10(embedder, dense, queries_for(0))
-        stage_ms = {k: round(v / reps, 2) for k, v in totals.items()}
-        log(
-            f"  {BATCH / elapsed:.2f} q/s, {elapsed * 1000:.1f} ms per batch of "
-            f"{BATCH}; stage ms {stage_ms}; bin_topk launches {launches}; "
-            f"dense recall@10 vs exact {recall:.4f}; lexcore native {lexcore}; "
-            f"{card}"
-        )
+
+def run_service(device, kernels, card) -> None:
+    from lean_explore_tpu_torch import native
+    from lean_explore_tpu_torch.index.dense import DenseIndex
+
+    by_name = {k["name"]: k for k in kernels}
+    err = check_grouped_rerank_f32(device)
+    log(f"  grouped rerank == flat rerank in f32 on the card: max diff {err:.3g}")
+    # The lexical and fuse stages run in native/lexcore.cpp when it builds
+    # and in numpy otherwise; the stage times below depend on which.
+    lexcore = native.load_lexcore() is not None
+    log(f"  host route: lexcore native library loaded = {lexcore}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        serving = build_service(device, tmp)
+        bf16 = serving.artifacts.dense
+        embedder = serving.embedder
+
+        with Phase("4. Service.search_batch, bf16 corpus"):
+            counts = drive_service(
+                serving.service(), serving.store, "bf16 corpus", "bin_topk", card
+            )
+            by_name["bin_topk"]["launches"] = counts["bin_topk"]
+            recall = dense_recall_at_10(embedder, bf16, queries_for(0))
+            log(f"  bf16 dense recall@10 of the kernel path vs exact {recall:.4f}")
+
+        with Phase("4b. Service.search_batch, int8 corpus"):
+            t = time.perf_counter()
+            host = seeded_corpus(device, N_ROWS, bf16.dim).cpu().numpy()
+            int8 = DenseIndex.build(host, bf16.ids, dtype="int8", device=device)
+            del host
+            service = serving.service(int8)
+            log(
+                f"  int8 index {tuple(int8.embeddings.shape)} and engine in "
+                f"{time.perf_counter() - t:.1f} s"
+            )
+            counts = drive_service(
+                service, serving.store, "int8 corpus", "bin_topk_int8", card
+            )
+            by_name["bin_topk_int8"]["launches"] = counts["bin_topk_int8"]
+            recall = dense_recall_at_10(embedder, int8, queries_for(0))
+            log(
+                f"  int8 dense recall@10 of the kernel path vs the exact int8 "
+                f"scan {recall:.4f}"
+            )
+            del service, int8
+
+        with Phase("4c. DenseIndex.search(method='windowed'), bf16 corpus"):
+            by_name["windowed_scores"]["launches"] = run_windowed_search(
+                embedder, bf16, card
+            )
+        log(f"  lexcore native {lexcore}")
+
+
+def run_windowed_search(embedder, dense, card) -> int:
+    """The windowed method over the serving index for the query embeddings
+    of two serving batches: exact, so it must give the full scan's scores
+    (within the f32 sum-order tolerance) and, away from near ties, its ids.
+    Returns the windowed kernel's launches."""
+    embs = [embedder.embed_device(queries_for(rep), True) for rep in range(2)]
+    torch.cuda.synchronize()
+    with CountLaunches() as launched:
+        t0 = time.perf_counter()
+        got = [dense.search(e, 10, method="windowed") for e in embs]
+        torch.cuda.synchronize()
+        windowed_ms = (time.perf_counter() - t0) / len(embs) * 1e3
+    expect_launches("windowed search", launched.counts, "windowed_scores", len(embs))
+    t0 = time.perf_counter()
+    want = [dense.search(e, 10, method="full") for e in embs]
+    full_ms = (time.perf_counter() - t0) / len(embs) * 1e3
+    tol = 2.0 * dense.dim * 2.0**-24
+    err = max(float(np.abs(g[0] - w[0]).max()) for g, w in zip(got, want))
+    if not err <= tol:
+        raise AssertionError(f"windowed search: score error {err} > {tol}")
+    n_differ = sum(int((g[1] != w[1]).sum()) for g, w in zip(got, want))
+    log(
+        f"  windowed search: {windowed_ms:.2f} ms per batch of {BATCH} (full "
+        f"scan {full_ms:.2f} ms); max score error vs full {err:.3g} (tol "
+        f"{tol:.3g}); ids differing at near ties {n_differ}; launches "
+        f"{launched.counts}; {card}"
+    )
+    return launched.counts["windowed_scores"]
 
 
 def check_results(responses, store) -> None:
@@ -569,9 +976,11 @@ def check_results(responses, store) -> None:
 
 
 def dense_recall_at_10(embedder, dense, queries) -> float:
-    """Recall@10 of the kernel path against the exact full scan on the same
-    query embeddings; bin survivorship loses a top-10 row only to a better
-    row in its bin, so this stays near 1."""
+    """Recall@10 of the kernel path against the exact scan of the same
+    index (``method="full"``: the f32 scan of a bf16 index, the exact
+    quantized scan of an int8 one) on the same query embeddings; bin
+    survivorship loses a top-10 row only to a better row in its bin, so
+    this stays near 1."""
     emb = embedder.embed_device(queries, True)
     _, got = dense.search(emb, 10)
     _, want = dense.search(emb, 10, method="full")

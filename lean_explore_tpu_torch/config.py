@@ -49,7 +49,8 @@ class Config:
 
     CORPUS_DTYPE: str = os.getenv("LEAN_EXPLORE_CORPUS_DTYPE", "bfloat16")
     """On-device corpus dtype: bfloat16 halves the bytes of the retrieval
-    pass; float32 gives exact scores."""
+    pass; float32 gives exact scores; int8 (per-row quantized codes and
+    scales) halves bfloat16's bytes again at a small recall cost."""
 
     SERVE_QUERY_BATCH: int = int(os.getenv("LEAN_EXPLORE_SERVE_QUERY_BATCH", "128"))
     """Most queries one engine step takes; larger batches are split."""

@@ -1,0 +1,320 @@
+// Building blocks shared by the port's tiled-product kernels (bin_topk.cu,
+// bin_topk_int8.cu, windowed_scores.cu).
+//
+// Each block computes 64 x 64 tiles of (corpus rows) x (queries) with four
+// warps of 32 x 32. Both operands are row-major with the depth contiguous
+// (corpus [N, D], queries [B, D]), so the depth is walked in stages of 128
+// bytes: 64 bf16 or 128 int8 values. Double-buffered cp.async copies each
+// stage into shared memory and ldmatrix feeds it to mma.sync. The fragment
+// layouts of m16n8k16 bf16 and m16n8k32 s8 are the same byte for byte (each
+// 32-bit register holds 4 bytes of one row), so one loader and one
+// ldmatrix walk serve both; only the mma instruction differs.
+//
+// The bin-max carry kernel (the port of the TPU's `_bin_topk_kernel` and
+// `_bin_topk_kernel_int8`, lean_explore_tpu/ops/pallas_retrieval.py:214 and
+// :260) is defined here once as a template over the product type, so the
+// bf16 and int8 versions share their tiling and their packing.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tiles {
+namespace {  // internal linkage: each kernel library has its own copy
+
+constexpr int BM = 64;              // corpus rows (bins) per block tile
+constexpr int BN = 64;              // queries per block tile
+constexpr int STAGE_BYTES = 128;    // depth bytes of one pipeline stage
+constexpr int LDS = STAGE_BYTES + 16;  // smem row stride, 144 B: no ldmatrix bank conflicts
+constexpr int THREADS = 128;        // 4 warps as 2 (rows) x 2 (queries), 32 x 32 each
+constexpr int STAGE_SMEM = BM * LDS;   // bytes of one buffered tile (BM == BN)
+
+constexpr float PACK_SHIFT = 3.0f;
+constexpr float PACK_FLOOR = 1e-30f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes == 0 fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// bf16 x bf16 products accumulated in f32; a score is the accumulator.
+struct Bf16Product {
+  using Acc = float;
+  static constexpr bool kScaled = false;
+  __device__ static __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+// int8 x int8 products accumulated exactly in int32; a score is
+// (raw * row_scale) * query_scale in f32, each step rounded on its own
+// (never contracted into an FMA), the order of the TPU kernel (:286-288).
+struct Int8Product {
+  using Acc = int32_t;
+  static constexpr bool kScaled = true;
+  __device__ static __forceinline__ void mma(int32_t (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+// Row (within the 64-row tile) and query column (within the 64-query tile)
+// of accumulator element e of fragment (mi, ni) of this thread.
+__device__ __forceinline__ int frag_row(int warp_m, int lane, int mi, int e) {
+  return warp_m * 32 + mi * 16 + (lane >> 2) + (e >> 1) * 8;
+}
+
+__device__ __forceinline__ int frag_col(int warp_n, int lane, int ni, int e) {
+  return warp_n * 32 + ni * 8 + (lane & 3) * 2 + (e & 1);
+}
+
+// Starts the cp.async copies of one stage: rows [0, BM) of `a_rows` (row
+// stride a_stride bytes) and query rows [q0, q0 + BN) of `q` (stride
+// q_stride bytes), bytes [k0, k0 + STAGE_BYTES) of each. Query rows >= B
+// are filled with zeros. 512 chunks of 16 B per tile, 4 per thread.
+__device__ __forceinline__ void load_stage(uint8_t* sa, uint8_t* sb, const uint8_t* a_rows,
+                                           long long a_stride, const uint8_t* q,
+                                           long long q_stride, int q0, int B, int k0,
+                                           int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c >> 3;
+    const int col = (c & 7) * 16;
+    cp_async16(sa + r * LDS + col, a_rows + r * a_stride + k0 + col, 16);
+    const int qr = q0 + r;
+    const bool ok = qr < B;
+    cp_async16(sb + r * LDS + col, q + (ok ? qr : 0) * q_stride + k0 + col, ok ? 16 : 0);
+  }
+}
+
+// Accumulates one stage's products into this warp's 32 x 32 fragment.
+template <class P>
+__device__ __forceinline__ void mma_stage(typename P::Acc (&acc)[2][4][4], const uint8_t* a_tile,
+                                          const uint8_t* b_tile, int warp_m, int warp_n,
+                                          int lane) {
+#pragma unroll
+  for (int kk = 0; kk < STAGE_BYTES; kk += 32) {
+    uint32_t a_frag[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = warp_m * 32 + mi * 16 + (lane & 15);
+      const int c = kk + (lane >> 4) * 16;
+      ldmatrix_x4(a_frag[mi], a_tile + r * LDS + c);
+    }
+    uint32_t b_frag[2][4];
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      const int r = warp_n * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8;
+      const int c = kk + ((lane >> 3) & 1) * 16;
+      ldmatrix_x4(b_frag[nj], b_tile + r * LDS + c);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const uint32_t* bf = b_frag[ni >> 1];
+        const int h = (ni & 1) * 2;
+        P::mma(acc[mi][ni], a_frag[mi], bf[h], bf[h + 1]);
+      }
+  }
+}
+
+// Packed bin-max carry. Grid: x = bin slice (bins / BM), y = query block
+// (ceil(B / BN)), z = super-tile group. Block (x, y, z) owns bins
+// [s0, s0 + BM) for queries [q0, q0 + BN), loops over the super-tiles of
+// its group (rows p * bins + s0 .. + BM), and writes
+// out[z][s0 .. s0 + BM)[q0 .. q0 + BN). Row scales [N] and query scales [B]
+// are read only by the int8 product.
+template <class P>
+__global__ void __launch_bounds__(THREADS)
+bin_carry_kernel(const uint8_t* __restrict__ q,        // [B, row_bytes]
+                 const uint8_t* __restrict__ corpus,   // [N, row_bytes]
+                 const float* __restrict__ q_scales,   // [B] (int8 only)
+                 const float* __restrict__ row_scales, // [N] (int8 only)
+                 float* __restrict__ out,              // [groups, bins, B]
+                 int B, int N, int row_bytes, int n_valid, int bins, int steal_bits,
+                 int tiles_per_group) {
+  __shared__ __align__(16) uint8_t smem_a[2][STAGE_SMEM];
+  __shared__ __align__(16) uint8_t smem_b[2][STAGE_SMEM];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warp_m = warp & 1;
+  const int warp_n = warp >> 1;
+  const int s0 = blockIdx.x * BM;
+  const int q0 = blockIdx.y * BN;
+
+  // Super-tiles of this block: those whose slice lies inside the corpus.
+  const int n_super = (N + bins - 1) / bins;
+  const int p_begin = blockIdx.z * tiles_per_group;
+  int p_end = min(p_begin + tiles_per_group, n_super);
+  while (p_end > p_begin && (long long)(p_end - 1) * bins + s0 >= N) --p_end;
+  const int k_steps = row_bytes / STAGE_BYTES;
+  const int total = (p_end > p_begin) ? (p_end - p_begin) * k_steps : 0;
+  const uint32_t low_mask = (1u << steal_bits) - 1u;
+
+  float qs[4][2];
+  if constexpr (P::kScaled) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = q0 + frag_col(warp_n, lane, ni, h);
+        qs[ni][h] = n < B ? q_scales[n] : 1.0f;
+      }
+  }
+
+  typename P::Acc acc[2][4][4];
+  float carry[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0;
+        carry[i][j][e] = 0.0f;
+      }
+
+  auto load = [&](int t, int buf) {
+    const int p = p_begin + t / k_steps;
+    const int k0 = (t % k_steps) * STAGE_BYTES;
+    const long long row0 = (long long)p * bins + s0;
+    load_stage(smem_a[buf], smem_b[buf], corpus + row0 * row_bytes, row_bytes, q, row_bytes,
+               q0, B, k0, tid);
+  };
+
+  if (total > 0) load(0, 0);
+  cp_async_commit();
+
+  for (int t = 0; t < total; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < total) load(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    mma_stage<P>(acc, smem_a[buf], smem_b[buf], warp_m, warp_n, lane);
+    __syncthreads();
+
+    if ((t % k_steps) == k_steps - 1) {
+      // Fold this super-tile's scores into the packed running max.
+      const uint32_t p = (uint32_t)(p_begin + t / k_steps);
+      const long long row0 = (long long)p * bins + s0;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int eh = 0; eh < 2; ++eh) {
+          const int m = frag_row(warp_m, lane, mi, eh * 2);
+          float rs = 1.0f;
+          if constexpr (P::kScaled) rs = row_scales[row0 + m];
+          const bool valid = row0 + m < n_valid;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int el = 0; el < 2; ++el) {
+              const int e = eh * 2 + el;
+              float s;
+              if constexpr (P::kScaled) {
+                s = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][e]), rs), qs[ni][el]);
+              } else {
+                s = acc[mi][ni][e];
+              }
+              const float shifted =
+                  valid ? fmaxf(__fadd_rn(s, PACK_SHIFT), PACK_FLOOR) : 0.0f;
+              const uint32_t bits = (__float_as_uint(shifted) & ~low_mask) | p;
+              carry[mi][ni][e] = fmaxf(carry[mi][ni][e], __uint_as_float(bits));
+              acc[mi][ni][e] = 0;
+            }
+        }
+    }
+  }
+  cp_async_wait_all();
+
+  float* dst = out + (long long)blockIdx.z * bins * B;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = frag_row(warp_m, lane, mi, e);
+        const int n = q0 + frag_col(warp_n, lane, ni, e);
+        if (n < B) dst[(long long)(s0 + m) * B + n] = carry[mi][ni][e];
+      }
+}
+
+// out[i] = max over g of partial[g][i]; every value is a non-negative packed float.
+__global__ void max_over_groups_kernel(const float* __restrict__ partial,
+                                       float* __restrict__ out, long long size,
+                                       int groups) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < size;
+       i += (long long)gridDim.x * blockDim.x) {
+    float m = partial[i];
+    for (int g = 1; g < groups; ++g) m = fmaxf(m, partial[(long long)g * size + i]);
+    out[i] = m;
+  }
+}
+
+// Launches the carry kernel over `groups` slices of the super-tiles and,
+// when groups > 1, the max over the partial carries (`partial` holds
+// groups * bins * B floats). Returns cudaGetLastError() after the launches.
+template <class P>
+int launch_bin_carry(const void* q, const void* corpus, const void* q_scales,
+                     const void* row_scales, void* out, void* partial, int B, int N,
+                     int row_bytes, int n_valid, int bins, int steal_bits, int groups,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_super = (N + bins - 1) / bins;
+  const int tiles_per_group = (n_super + groups - 1) / groups;
+  dim3 grid(bins / BM, (B + BN - 1) / BN, groups);
+  float* carry_out = groups > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
+  bin_carry_kernel<P><<<grid, THREADS, 0, s>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus),
+      static_cast<const float*>(q_scales), static_cast<const float*>(row_scales), carry_out,
+      B, N, row_bytes, n_valid, bins, steal_bits, tiles_per_group);
+  if (groups > 1) {
+    const long long size = (long long)bins * B;
+    const int blocks = (int)((size + 255) / 256);
+    max_over_groups_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(partial),
+                                                  static_cast<float*>(out), size, groups);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace tiles

@@ -32,8 +32,8 @@ from lean_explore_tpu_torch.ops.cuda_build import load_library
 
 PACK_SHIFT = 3.0
 PACK_FLOOR = 1e-30
-# Kernel tile sizes (csrc/bin_topk.cu BM, BK): corpus rows and bins come in
-# slices of 64, and the depth in stages of 64.
+# Kernel tile sizes (csrc/mma_tiles.cuh BM, STAGE_BYTES): corpus rows and
+# bins come in slices of 64, and the depth in stages of 128 bytes (64 bf16).
 ROW_MULTIPLE = 64
 DEPTH_MULTIPLE = 64
 
@@ -44,6 +44,29 @@ def steal_bits_for(n_rows: int, bins: int) -> int:
     (pallas_retrieval.py:339-343)."""
     n_supertiles = max(-(-n_rows // bins), 1)
     return max((n_supertiles - 1).bit_length(), 1)
+
+
+def fold_supertiles(
+    tile_scores, n: int, batch: int, n_valid: int, bins: int, steal_bits: int, device
+) -> torch.Tensor:
+    """The packed carry [bins, B] from f32 scores per super-tile:
+    ``tile_scores(start, stop)`` gives rows [start, stop) as [rows, B]. Pad
+    rows pack 0; the low ``steal_bits`` bits carry the super-tile id. The
+    plain twins of the bf16 and int8 kernels share it."""
+    low_mask = (1 << steal_bits) - 1
+    carry = torch.zeros(bins, batch, dtype=torch.float32, device=device)
+    for p, start in enumerate(range(0, n, bins)):
+        stop = min(start + bins, n)
+        scores = tile_scores(start, stop)
+        rows = torch.arange(start, stop, device=device)[:, None]
+        shifted = torch.where(
+            rows < n_valid,
+            torch.clamp(scores + PACK_SHIFT, min=PACK_FLOOR),
+            torch.zeros((), dtype=torch.float32, device=device),
+        )
+        packed = ((shifted.view(torch.int32) & ~low_mask) | p).view(torch.float32)
+        carry[: stop - start] = torch.maximum(carry[: stop - start], packed)
+    return carry
 
 
 def bin_topk_carry_plain(
@@ -59,23 +82,11 @@ def bin_topk_carry_plain(
     exact in f32), so the only difference from the kernel is the order of
     the f32 sums.
     """
-    n = corpus.shape[0]
-    batch = queries.shape[0]
     qf = queries.to(torch.float32)
-    low_mask = (1 << steal_bits) - 1
-    carry = torch.zeros(bins, batch, dtype=torch.float32, device=corpus.device)
-    for p, start in enumerate(range(0, n, bins)):
-        stop = min(start + bins, n)
-        scores = corpus[start:stop].to(torch.float32) @ qf.T  # [rows, B]
-        rows = torch.arange(start, stop, device=corpus.device)[:, None]
-        shifted = torch.where(
-            rows < n_valid,
-            torch.clamp(scores + PACK_SHIFT, min=PACK_FLOOR),
-            torch.zeros((), dtype=torch.float32, device=corpus.device),
-        )
-        packed = ((shifted.view(torch.int32) & ~low_mask) | p).view(torch.float32)
-        carry[: stop - start] = torch.maximum(carry[: stop - start], packed)
-    return carry
+    return fold_supertiles(
+        lambda start, stop: corpus[start:stop].to(torch.float32) @ qf.T,
+        corpus.shape[0], queries.shape[0], n_valid, bins, steal_bits, corpus.device,
+    )
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -84,10 +95,67 @@ def _configure(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
-def _supertile_groups(device: torch.device, blocks: int, n_supertiles: int) -> int:
-    """Split the super-tile loop so about four blocks run per SM."""
+def supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
+    """Groups the carry kernels split the super-tiles of [n] rows over, so
+    that about four blocks of (64 bins x 64 queries) run per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_supertiles, -(-4 * sms // blocks)))
+    blocks = (bins // ROW_MULTIPLE) * -(-batch // 64)
+    return max(1, min(-(-n // bins), -(-4 * sms // blocks)))
+
+
+def check_carry_inputs(
+    kernel: str,
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    n_valid: int,
+    bins: int,
+    dtype: torch.dtype,
+    depth_multiple: int,
+) -> None:
+    """Raise on what a carry kernel does not take: both on one CUDA device,
+    of ``dtype``, contiguous and 16-byte aligned, rows and bins multiples of
+    64, depth a multiple of ``depth_multiple``, at least one query."""
+    n, dim = corpus.shape
+    if corpus.device.type != "cuda" or queries.device != corpus.device:
+        raise ValueError(
+            f"{kernel}: queries on {queries.device}, corpus on "
+            f"{corpus.device}; both must be on one CUDA device"
+        )
+    if corpus.dtype != dtype or queries.dtype != dtype:
+        raise TypeError(
+            f"{kernel} kernel takes {dtype} inputs, got {queries.dtype} queries "
+            f"and {corpus.dtype} corpus"
+        )
+    if queries.ndim != 2 or queries.shape[1] != dim:
+        raise ValueError(f"queries {tuple(queries.shape)} vs corpus {(n, dim)}")
+    if not (queries.is_contiguous() and corpus.is_contiguous()):
+        raise ValueError(f"{kernel} kernel needs contiguous inputs")
+    if n % ROW_MULTIPLE or bins % ROW_MULTIPLE or dim % depth_multiple:
+        raise ValueError(
+            f"{kernel} kernel needs rows ({n}) and bins ({bins}) multiples of "
+            f"{ROW_MULTIPLE} and depth ({dim}) a multiple of {depth_multiple}"
+        )
+    if not 0 <= n_valid <= n:
+        raise ValueError(f"n_valid={n_valid} outside [0, {n}]")
+    if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
+        raise ValueError(f"{kernel} kernel needs 16-byte aligned inputs")
+    if queries.shape[0] == 0:
+        raise ValueError(f"{kernel} kernel needs at least one query")
+
+
+def carry_buffers(
+    corpus: torch.Tensor, batch: int, bins: int
+) -> tuple[torch.Tensor, torch.Tensor | None, int]:
+    """(out [bins, B], partial [groups, bins, B] or None, groups)."""
+    device = corpus.device
+    groups = supertile_groups(device, corpus.shape[0], batch, bins)
+    out = torch.empty(bins, batch, dtype=torch.float32, device=device)
+    partial = (
+        torch.empty(groups, bins, batch, dtype=torch.float32, device=device)
+        if groups > 1
+        else None
+    )
+    return out, partial, groups
 
 
 def bin_topk_carry(
@@ -106,45 +174,13 @@ def bin_topk_carry(
     steal_bits = steal_bits_for(n, bins)
     if corpus.device.type == "cpu" and queries.device.type == "cpu":
         return bin_topk_carry_plain(queries, corpus, n_valid, bins, steal_bits)
-    if corpus.device.type != "cuda" or queries.device != corpus.device:
-        raise ValueError(
-            f"bin_topk_carry: queries on {queries.device}, corpus on "
-            f"{corpus.device}; both must be on one CUDA device"
-        )
-    if corpus.dtype != torch.bfloat16 or queries.dtype != torch.bfloat16:
-        raise TypeError(
-            f"bin_topk kernel takes bf16 inputs, got {queries.dtype} queries "
-            f"and {corpus.dtype} corpus"
-        )
-    if queries.ndim != 2 or queries.shape[1] != dim:
-        raise ValueError(f"queries {tuple(queries.shape)} vs corpus {(n, dim)}")
-    if not (queries.is_contiguous() and corpus.is_contiguous()):
-        raise ValueError("bin_topk kernel needs contiguous inputs")
-    if n % ROW_MULTIPLE or bins % ROW_MULTIPLE or dim % DEPTH_MULTIPLE:
-        raise ValueError(
-            f"bin_topk kernel needs rows ({n}) and bins ({bins}) multiples of "
-            f"{ROW_MULTIPLE} and depth ({dim}) a multiple of {DEPTH_MULTIPLE}"
-        )
-    if not 0 <= n_valid <= n:
-        raise ValueError(f"n_valid={n_valid} outside [0, {n}]")
-    if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
-        raise ValueError("bin_topk kernel needs 16-byte aligned inputs")
+    check_carry_inputs(
+        "bin_topk", queries, corpus, n_valid, bins, torch.bfloat16, DEPTH_MULTIPLE
+    )
     batch = queries.shape[0]
-    if batch == 0:
-        raise ValueError("bin_topk kernel needs at least one query")
-
     lib = load_library("bin_topk")
     _configure(lib)
-    out = torch.empty(bins, batch, dtype=torch.float32, device=corpus.device)
-    n_supertiles = -(-n // bins)
-    groups = _supertile_groups(
-        corpus.device, (bins // ROW_MULTIPLE) * -(-batch // 64), n_supertiles
-    )
-    partial = (
-        torch.empty(groups, bins, batch, dtype=torch.float32, device=corpus.device)
-        if groups > 1
-        else None
-    )
+    out, partial, groups = carry_buffers(corpus, batch, bins)
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream(corpus.device).cuda_stream
         status = lib.bin_topk_carry(

@@ -1,33 +1,44 @@
 """Dense top-k retrieval ops, the counterpart of lean_explore_tpu/ops/dense.py.
 
-Methods:
+Methods (the JAX package's names):
 
 - ``full``: one matmul to [B, N], pad rows masked to -inf, exact top-k.
+  ``approx`` and ``chunked`` compute the same exact result: JAX's
+  ``approx_max_k`` is exact off a TPU, and its chunked scan is exact.
 - ``fused``: the plain bin-max scan (``_scan_bin_topk``): one matmul per
   super-tile of ``bins`` rows folded into a running per-query bin max and
   super-tile id, then an exact top-k over the [B, bins] carry.
-- ``bin_topk``: the same selection with packed provenance through
-  ``ops.bin_topk`` — the hand-written Hopper kernel on a CUDA tensor.
+- ``bin_topk`` (``fused_pallas`` is the same): the same selection with
+  packed provenance through ``ops.bin_topk``, the hand-written Hopper
+  kernel on a CUDA tensor.
+- ``windowed``: the exact windowed top-k through ``ops.windowed``, the
+  hand-written fused scores + window maxima kernel on a CUDA tensor.
 - ``auto``: ``full`` for small corpora (n <= max(4k, 16384), where it is
   exact and cheap); at scale ``bin_topk`` for a bf16 corpus on CUDA, as the
   JAX package takes its Pallas kernel on a TPU; else ``full``, which is
   what the JAX package's off-TPU ``approx`` computes on the CPU.
 
-A float32 corpus never runs in TF32: float32 products keep exact
-FAISS-flat scores (the JAX package uses HIGHEST precision for the same
-reason, ops/dense.py:58-74). Pad rows are masked before any selection.
+A float32 corpus never runs in TF32 (ops/__init__.py): float32 products
+keep exact FAISS-flat scores (the JAX package uses HIGHEST precision for
+the same reason, ops/dense.py:58-74). Pad rows are masked before any
+selection.
 """
 
 from typing import Literal
 
 import torch
 
-from lean_explore_tpu_torch.ops.bin_topk import bin_topk
+from lean_explore_tpu_torch.ops import windowed
+from lean_explore_tpu_torch.ops.bin_topk import ROW_MULTIPLE, bin_topk
 
-# float32 corpora are scored in full float32: never TF32.
-torch.backends.cuda.matmul.allow_tf32 = False
+Method = Literal[
+    "auto", "full", "approx", "chunked", "fused", "fused_pallas", "bin_topk",
+    "windowed",
+]
+METHODS = Method.__args__
 
-Method = Literal["auto", "full", "fused", "bin_topk"]
+# Rows per window of the windowed method (the JAX dense_topk default).
+WINDOW = 16
 
 # Rows of the padded device corpus come in multiples of this (the kernel's
 # corpus tile; index.dense pads once to a multiple of 512).
@@ -111,12 +122,14 @@ def dense_topk(
         corpus: [N, D] corpus embeddings, padded or not.
         k: Number of neighbors, <= n_valid.
         n_valid: Number of real corpus rows; defaults to N.
-        method: "auto", "full", "fused" or "bin_topk" (module docstring).
+        method: one of ``METHODS`` (module docstring).
 
     Returns:
         (scores [B, k] float32, indices [B, k] int32), sorted descending,
         on the corpus's device.
     """
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r} (have {METHODS})")
     if n_valid is None:
         n_valid = corpus.shape[0]
     n_valid = int(n_valid)
@@ -129,7 +142,7 @@ def dense_topk(
         on_card = corpus.device.type == "cuda" and corpus.dtype == torch.bfloat16
         method = "bin_topk" if at_scale and on_card else "full"
 
-    if method == "full":
+    if method in ("full", "approx", "chunked"):
         return _full_topk(queries, corpus, n_valid, k)
     if method == "fused":
         bins = 8192
@@ -139,10 +152,14 @@ def dense_topk(
         if k > bins:  # tiny corpora: the full scan is exact and cheap
             return _full_topk(queries, corpus, n_valid, k)
         return _scan_bin_topk(queries, corpus, n_valid, k=k, bins=bins)
-    if method == "bin_topk":
+    if method in ("bin_topk", "fused_pallas"):
         corpus, _ = pad_rows(corpus, TILE_ROWS)
         bins = serving_bins(queries.shape[0], corpus.shape[0])
         if k > bins:
             return _full_topk(queries, corpus, n_valid, k)
         return bin_topk(queries, corpus, n_valid, k=k, bins=bins)
-    raise ValueError(f"unknown method {method!r}")
+    # windowed
+    corpus, _ = pad_rows(corpus, ROW_MULTIPLE)
+    if k * WINDOW >= corpus.shape[0]:
+        return _full_topk(queries, corpus, n_valid, k)
+    return windowed.windowed_topk(queries, corpus, n_valid, k=k, window=WINDOW)

@@ -53,7 +53,7 @@ def main() -> int:
 
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="profile_serving_") as tmp:
-        service = cs.build_service(device, tmp, args.rows)[0]
+        service = cs.build_service(device, tmp, args.rows).service()
         asyncio.run(service.search_batch(cs.queries_for(999)))
         torch.cuda.synchronize()
 

@@ -6,16 +6,22 @@ no JAX, without the repository's JAX conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance for the kernel vs its plain twin: two packing quanta
-(2^steal_bits ulps of [2, 4), 2^-22 each) plus twice the f32 dot-product
-error bound of unit rows of depth D (2 * D * 2^-24): the two differ only in
-the order of the f32 sums (derivation in chip_smoke.py).
+Tolerance for the bf16 kernels vs their plain twins: the two differ only
+in the order of the f32 sums, within twice the f32 dot-product error bound
+of unit rows of depth D (2 * D * 2^-24), plus, for the packed carry, two
+packing quanta (2^steal_bits ulps of [2, 4), 2^-22 each) (derivation in
+chip_smoke.py). The int8 kernel's products are exact integers and its f32
+steps are rounded as its twin's, so its carry equals the twin's bit for bit.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from lean_explore_tpu_torch.ops import bin_topk as K
+from lean_explore_tpu_torch.ops import bin_topk_int8 as K8
+from lean_explore_tpu_torch.ops import windowed as W
+from lean_explore_tpu_torch.ops.quant import quantize_rows_device
 
 pytestmark = pytest.mark.cuda
 
@@ -81,4 +87,108 @@ def test_dense_index_search_takes_the_kernel(cuda):
     before = K.bin_topk_carry.launches
     _, ids = index.search(corpus[:5].float(), 10)
     assert K.bin_topk_carry.launches == before + 1
+    assert ids[:, 0].tolist() == [0, 1, 2, 3, 4]
+
+
+def _int8_rows(n, d, gen, device):
+    return quantize_rows_device(_unit_rows(n, d, gen, device).float())
+
+
+@pytest.mark.parametrize(
+    "n,n_valid,batch,bins",
+    [
+        (8192 + 4096, 8192 + 4000, 37, 4096),  # ragged batch, partial super-tile
+        (4096 * 5, 4096 * 5, 1, 4096),  # one query, whole super-tiles
+        (2048, 1500, 128, 1024),  # fewer super-tiles than groups
+        (64 * 9, 64 * 9, 200, 64),  # two query blocks and a partial one
+    ],
+)
+def test_int8_carry_equals_plain(cuda, n, n_valid, batch, bins):
+    gen = torch.Generator(device=cuda).manual_seed(n + batch + 1)
+    codes, scales = _int8_rows(n, 256, gen, cuda)
+    q_codes, q_scales = _int8_rows(batch, 256, gen, cuda)
+    before = K8.bin_topk_int8_carry.launches
+    got = K8.bin_topk_int8_carry(q_codes, q_scales, codes, scales, n_valid, bins)
+    assert K8.bin_topk_int8_carry.launches == before + 1
+    want = K8.bin_topk_int8_carry_plain(
+        q_codes, q_scales, codes, scales, n_valid, bins, K.steal_bits_for(n, bins)
+    )
+    torch.cuda.synchronize()
+    assert got.shape == (bins, batch)
+    assert torch.equal(got, want)
+
+
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    codes = torch.zeros(512, 128, dtype=torch.int8, device=cuda)
+    scales = torch.ones(512, device=cuda)
+    q = torch.zeros(2, 128, dtype=torch.int8, device=cuda)
+    qs = torch.ones(2, device=cuda)
+    with pytest.raises(TypeError):
+        K8.bin_topk_int8_carry(q.float(), qs, codes, scales, 512, 256)
+    with pytest.raises(TypeError):
+        K8.bin_topk_int8_carry(q, qs, codes, scales.double(), 512, 256)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        K8.bin_topk_int8_carry(
+            q[:, :64].contiguous(), qs, codes[:, :64].contiguous(), scales, 512, 256
+        )
+    with pytest.raises(ValueError, match="CUDA device"):
+        K8.bin_topk_int8_carry(q.cpu(), qs, codes, scales, 512, 256)
+
+
+def test_int8_dense_index_search_takes_the_kernel(cuda):
+    from lean_explore_tpu_torch.index.dense import DenseIndex
+
+    rng = np.random.default_rng(4)
+    emb = rng.standard_normal((20_000, 128)).astype(np.float32)
+    index = DenseIndex.build(emb, np.arange(20_000), dtype="int8", device=cuda)
+    before = K8.bin_topk_int8_carry.launches
+    before_bf16 = K.bin_topk_carry.launches
+    _, ids = index.search(emb[:5], 10)
+    assert K8.bin_topk_int8_carry.launches == before + 1
+    assert K.bin_topk_carry.launches == before_bf16
+    assert ids[:, 0].tolist() == [0, 1, 2, 3, 4]
+
+
+@pytest.mark.parametrize(
+    "n,n_valid,batch,window",
+    [(4096, 4000, 37, 8), (640, 640, 1, 16), (64 * 9, 500, 200, 64)],
+)
+def test_windowed_scores_match_plain(cuda, n, n_valid, batch, window):
+    gen = torch.Generator(device=cuda).manual_seed(n + batch + 2)
+    dim = 256
+    corpus = _unit_rows(n, dim, gen, cuda)
+    queries = _unit_rows(batch, dim, gen, cuda).float()
+    before = W.fused_scores_wmax.launches
+    got_s, got_w = W.fused_scores_wmax(queries, corpus, n_valid, window)
+    assert W.fused_scores_wmax.launches == before + 1
+    want_s, want_w = W.fused_scores_wmax_plain(queries, corpus, n_valid, window)
+    torch.cuda.synchronize()
+    tol = 2.0 * dim * 2.0**-24
+    assert got_s.shape == (n, batch) and got_w.shape == (n // window, batch)
+    for got, want in ((got_s, want_s), (got_w, want_w)):
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        finite = torch.isfinite(want)
+        assert float((got[finite] - want[finite]).abs().max()) <= tol
+
+
+def test_windowed_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    corpus = torch.zeros(512, 64, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        W.fused_scores_wmax(q, corpus.float(), 512)
+    with pytest.raises(ValueError, match="window"):
+        W.fused_scores_wmax(q, corpus, 512, window=24)
+    with pytest.raises(ValueError, match="CUDA device"):
+        W.fused_scores_wmax(q.cpu(), corpus, 512)
+
+
+def test_dense_index_windowed_search_takes_the_kernel(cuda):
+    from lean_explore_tpu_torch.index.dense import DenseIndex
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    corpus = _unit_rows(20_000, 128, gen, cuda)
+    index = DenseIndex(corpus, np.arange(20_000), normalized=True)
+    before = W.fused_scores_wmax.launches
+    _, ids = index.search(corpus[:5].float(), 10, method="windowed")
+    assert W.fused_scores_wmax.launches == before + 1
     assert ids[:, 0].tolist() == [0, 1, 2, 3, 4]

@@ -3,7 +3,10 @@
 Float32 on the CPU: the full scan is exact on both sides, so ids must be
 equal away from exact ties and scores agree to 1e-5 (two f32 sum orders
 over 64-dim unit rows). The plain bin-max scan (``fused``) makes the same
-bin-survivorship choices as the JAX scan on the same scores.
+bin-survivorship choices as the JAX scan on the same scores. Every method
+name of the JAX package is accepted: ``approx`` and ``chunked`` are exact
+off a TPU, ``fused_pallas`` packs scores (a quantum of at most 2^-21, far
+inside 1e-5) and ``windowed`` is exact.
 """
 
 import jax.numpy as jnp
@@ -25,7 +28,9 @@ def _compare(got, want, atol=1e-5):
     np.testing.assert_array_equal(got_i, want_i)
 
 
-@pytest.mark.parametrize("method", ["full", "fused"])
+@pytest.mark.parametrize(
+    "method", ["full", "fused", "approx", "chunked", "fused_pallas", "windowed"]
+)
 @pytest.mark.parametrize("n,b,k", [(500, 4, 10), (3000, 16, 100), (257, 1, 7)])
 def test_dense_topk_matches_jax(method, n, b, k):
     corpus = random_unit_rows(n, 64, seed=n)
@@ -93,5 +98,38 @@ def test_dense_index_build_bfloat16():
     assert index.embeddings.dtype == torch.bfloat16
     scores, ids = index.search(emb[:2], 1)
     np.testing.assert_array_equal(ids[:, 0], [0, 1])
-    with pytest.raises(ValueError, match="int8"):
-        DenseIndex.build(emb, np.arange(40), dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="float16"):
+        DenseIndex.build(emb, np.arange(40), dtype="float16", device="cpu")
+
+
+@pytest.mark.parametrize("batch,method", [(1, "auto"), (3, "full"), (16, "fused_pallas")])
+def test_dense_index_int8_matches_jax(tmp_path, batch, method):
+    """An int8 index built from the same artifacts: the same codes and
+    scales, and (the exact quantized scan on both sides off the card) the
+    same ids, scores within 1e-6."""
+    n, dim, k = 700, 64, 12
+    rng = np.random.default_rng(batch + 40)
+    emb = rng.standard_normal((n, dim)).astype(np.float32)
+    ids = np.arange(100, 100 + n, dtype=np.int64)
+    JaxDenseIndex.build(emb, ids, dtype="float32").save(tmp_path)
+    jax_index = JaxDenseIndex.load(tmp_path, dtype="int8")
+    index = DenseIndex.load(tmp_path, dtype="int8", device="cpu")
+    assert index.embeddings.dtype == torch.int8 and index.n == n
+    np.testing.assert_array_equal(index.embeddings.numpy(), np.asarray(jax_index.embeddings))
+    np.testing.assert_array_equal(index.scales.numpy(), np.asarray(jax_index.scales))
+    np.testing.assert_allclose(
+        index.row_embeddings(), jax_index.row_embeddings(), atol=0, rtol=0
+    )
+    queries = rng.standard_normal((batch, dim)).astype(np.float32)
+    got_s, got_ids = index.search(torch.from_numpy(queries), k, method=method)
+    want_s, want_ids = jax_index.search(queries, k, method=method)
+    np.testing.assert_allclose(got_s, want_s, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(got_ids, want_ids)
+
+
+def test_unknown_method_raises():
+    index = DenseIndex.build(random_unit_rows(40, 16, seed=8), np.arange(40), dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="unknown method"):
+        index.search(np.ones((1, 16), dtype=np.float32), 3, method="nope")
+    with pytest.raises(ValueError, match="unknown method"):
+        dense_topk(torch.ones(1, 16), torch.ones(40, 16), 3, method="nope")

@@ -22,6 +22,7 @@ from lean_explore_tpu.search.engine import SearchEngine as JaxEngine
 from lean_explore_tpu.search.service import Service as JaxService
 from lean_explore_tpu.util.embedding_client import EmbeddingClient as JaxEmbedder
 from lean_explore_tpu.util.reranker_client import RerankerClient as JaxReranker
+from lean_explore_tpu_torch.config import Config
 from lean_explore_tpu_torch.search.engine import SearchEngine
 from lean_explore_tpu_torch.search.service import Service
 from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
@@ -81,20 +82,20 @@ def setup(tmp_path_factory):
     return data, embed_dir, rerank_dir
 
 
-def _jax_service(data, embed_dir, rerank_dir):
+def _jax_service(data, embed_dir, rerank_dir, dense_dtype="float32"):
     engine = JaxEngine(
         data,
         embedding_client=JaxEmbedder(str(embed_dir), model_dir=embed_dir, dtype="float32"),
         reranker_client=JaxReranker(
             str(rerank_dir), model_dir=rerank_dir, dtype="float32", max_length=256
         ),
-        dense_dtype="float32",
+        dense_dtype=dense_dtype,
         preload_metadata=True,
     )
     return JaxService(engine)
 
 
-def _torch_service(data, embed_dir, rerank_dir):
+def _torch_service(data, embed_dir, rerank_dir, dense_dtype="float32"):
     engine = SearchEngine(
         data,
         embedding_client=EmbeddingClient(
@@ -104,7 +105,7 @@ def _torch_service(data, embed_dir, rerank_dir):
             str(rerank_dir), model_dir=rerank_dir, dtype=torch.float32,
             max_length=256, device="cpu",
         ),
-        dense_dtype="float32",
+        dense_dtype=dense_dtype,
         preload_metadata=True,
         device="cpu",
     )
@@ -124,6 +125,24 @@ def test_search_batch_same_ids_as_jax(setup, rerank_top):
         assert g.query == w.query
         assert [r.id for r in g.results] == [r.id for r in w.results]
         assert g.count == w.count
+        assert [r.model_dump() for r in g.results] == [
+            r.model_dump() for r in w.results
+        ]
+    assert any(r.count for r in got)
+
+
+def test_search_batch_int8_same_ids_as_jax(setup, monkeypatch):
+    """The int8 corpus through both engines: the same result ids and
+    payloads. The port's engine takes the dtype from Config.CORPUS_DTYPE
+    (LEAN_EXPLORE_CORPUS_DTYPE) when none is passed."""
+    want = asyncio.run(
+        _jax_service(*setup, dense_dtype="int8").search_batch(QUERIES, rerank_top=0)
+    )
+    monkeypatch.setattr(Config, "CORPUS_DTYPE", "int8")
+    service = _torch_service(*setup, dense_dtype=None)
+    assert service.engine._artifacts.dense.embeddings.dtype == torch.int8
+    got = asyncio.run(service.search_batch(QUERIES, rerank_top=0))
+    for g, w in zip(got, want):
         assert [r.model_dump() for r in g.results] == [
             r.model_dump() for r in w.results
         ]

@@ -1,9 +1,10 @@
 """Import hygiene of the port: its serving path loads no JAX and none of the
 packages the card's machine lacks.
 
-A fresh interpreter imports the port, runs a CPU search through
+A fresh interpreter imports the port, runs CPU searches through
 ``Service.search_batch`` (tiny random weights, a WordLevel tokenizer, a
-BM25 + dense artifact set built in memory), and then reports which of the
+BM25 + dense artifact set built in memory; a float32 and then an int8
+dense index) and a windowed dense search, and then reports which of the
 forbidden modules are in ``sys.modules``.
 """
 
@@ -75,6 +76,15 @@ engine = SearchEngine(
 )
 out = asyncio.run(Service(engine).search_batch(["nat add", "list map comm"]))
 assert all(r.count > 0 for r in out), [r.count for r in out]
+emb = np.random.default_rng(1).standard_normal((len(names), 32))
+int8 = DenseIndex.build(emb, ids, dtype="int8", device="cpu")
+engine._artifacts = IndexArtifacts(int8, spaced, raw, ids, {})
+out = asyncio.run(Service(engine).search_batch(["nat add", "list map comm"]))
+assert all(r.count > 0 for r in out), [r.count for r in out]
+rows = np.random.default_rng(2).standard_normal((300, 32))
+windowed = DenseIndex.build(rows, np.arange(300), device="cpu")
+_, got = windowed.search(rows[:3], 4, method="windowed")
+assert got[:, 0].tolist() == [0, 1, 2], got
 print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
 """
 
