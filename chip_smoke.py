@@ -7,10 +7,12 @@ Phases, each announced before it starts and timed after it ends:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of ``lean_explore_tpu_torch/csrc`` with nvcc;
-3. hold each kernel (bin_topk, bin_topk_int8, windowed_scores) against its
-   plain PyTorch version on the card, at the shapes the serving path gives
-   it, and time both beside the card's bound and one PyTorch library call
-   for the same function;
+3. hold each kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it, and time both beside the card's bound
+   and one PyTorch library call for the same function: bin_topk over a
+   bf16 and a float32 corpus, bin_topk_int8, windowed_scores over a bf16
+   and a float32 corpus, and flash_attention over bf16 and float32 inputs
+   at the Qwen3-0.6B serving geometry;
 4. drive ``Service.search_batch`` of the port at full width: a 300,000-row
    synthetic store, a 300,000 x 1024 bf16 dense index on the card, and two
    clients of the Qwen3-0.6B geometry with random bf16 weights from a seed,
@@ -18,7 +20,14 @@ Phases, each announced before it starts and timed after it ends:
    4b. the same service over the same corpus quantized to int8
    (``DenseIndex.build(dtype="int8")``), one warm and two timed batches;
    4c. ``DenseIndex.search(method="windowed")`` over the bf16 index with
-   the serving path's query embeddings of two batches.
+   the serving path's query embeddings of two batches;
+   4d. the flash-attention path: ``EmbeddingClient.embed_sync`` of 64 long
+   documents (the 512-token bucket) and ``RerankerClient.rerank_pairs_sync``
+   of 64 pairs (the 256-token bucket), each with and without
+   LEAN_EXPLORE_FLASH_ATTENTION=1, on the phase-4 clients, then
+   ``embed_sync`` of 64 long documents on a float32 copy of the embedder;
+   4e. ``DenseIndex.search`` over the phase-4 corpus held in float32 on
+   the card, with the default method and the windowed one.
    Every kernel's launch count is set to 0 just before each of these
    paths is driven and read just after it.
 
@@ -31,6 +40,7 @@ import argparse
 import asyncio
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -43,6 +53,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak, same source
 INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak, same source
+TF32_FLOP_PER_S = 495e12  # dense TF32 tensor-core peak (float32 inputs), same source
 
 
 def log(msg: str) -> None:
@@ -94,20 +105,22 @@ def bound_ms(
 # ----------------------------------------------------------------------
 
 
-def _unit_rows(n: int, d: int, gen: torch.Generator, device) -> torch.Tensor:
+def _unit_rows(
+    n: int, d: int, gen: torch.Generator, device, dtype=torch.bfloat16
+) -> torch.Tensor:
     x = torch.randn(n, d, generator=gen, device=device, dtype=torch.float32)
-    return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype)
 
 
 def _check_bin_topk_case(name, q, corpus, n_valid, k, bins) -> float:
     """Kernel vs plain on one input; returns the max score difference.
 
-    Tolerance: the two differ only in the order of the f32 sums. For unit
-    rows of depth D each sum is within D * 2^-24 of the exact inner product
-    (the standard dot-product error bound), so the two scores differ by at
-    most 2 * D * 2^-24 before packing, and packing truncates each to its
+    Tolerance: the kernel's scores lie within ``score_tolerance`` of the
+    twin's
+    before packing (bf16: the two differ only in the order of the f32
+    sums, 2 * D * 2^-24 for unit rows), and packing truncates each to its
     quantum (2^steal_bits ulps of [2, 4), 2^-22 each). Scores must agree
-    within tol = 2 quanta + 2 * D * 2^-24; a row id may differ only where
+    within tol = 2 quanta + score_tolerance; a row id may differ only where
     the exact f32 scores of the two rows lie within tol (a near tie), and
     every returned row's own score must match its reported one within tol
     (provenance).
@@ -115,7 +128,7 @@ def _check_bin_topk_case(name, q, corpus, n_valid, k, bins) -> float:
     from lean_explore_tpu_torch.ops import bin_topk as K
 
     steal = K.steal_bits_for(corpus.shape[0], bins)
-    tol = 2.0 * 2.0 ** (steal - 22) + 2.0 * q.shape[1] * 2.0**-24
+    tol = 2.0 * 2.0 ** (steal - 22) + K.score_tolerance(corpus.dtype, q.shape[1])
     packed_kernel = K.bin_topk_carry(q, corpus, n_valid, bins)
     packed_plain = K.bin_topk_carry_plain(q, corpus, n_valid, bins, steal)
     torch.cuda.synchronize()
@@ -143,22 +156,23 @@ def _check_bin_topk_case(name, q, corpus, n_valid, k, bins) -> float:
                 f"{name}: {n_differ} ids differ with a score gap {gap} > {tol}"
             )
     log(
-        f"  {name}: B={q.shape[0]} N={corpus.shape[0]} n_valid={n_valid} "
-        f"k={k} bins={bins} max_abs_err={err:.3g} (tol {tol:.3g}) "
-        f"ids_differing_at_near_ties={n_differ}"
+        f"  {name} ({corpus.dtype}): B={q.shape[0]} N={corpus.shape[0]} "
+        f"n_valid={n_valid} k={k} bins={bins} max_abs_err={err:.3g} "
+        f"(tol {tol:.3g}) ids_differing_at_near_ties={n_differ}"
     )
     return err
 
 
-def check_bin_topk(device) -> dict:
+def check_bin_topk(device, dtype=torch.bfloat16) -> dict:
     from lean_explore_tpu_torch.ops import bin_topk as K
 
-    gen = torch.Generator(device=device).manual_seed(0)
+    f32 = dtype == torch.float32
+    gen = torch.Generator(device=device).manual_seed(30 if f32 else 0)
     n_real, dim, batch, k, bins = 300_000, 1024, 128, 1000, 4096
     n_pad = -(-n_real // 512) * 512
-    corpus = torch.zeros(n_pad, dim, dtype=torch.bfloat16, device=device)
-    corpus[:n_real] = _unit_rows(n_real, dim, gen, device)
-    q = _unit_rows(batch, dim, gen, device)
+    corpus = torch.zeros(n_pad, dim, dtype=dtype, device=device)
+    corpus[:n_real] = _unit_rows(n_real, dim, gen, device, dtype)
+    q = _unit_rows(batch, dim, gen, device, dtype)
     # Planted exact matches: one mid-corpus, one in the partial final
     # super-tile; each must come back first.
     q[0] = corpus[123_457]
@@ -179,9 +193,9 @@ def check_bin_topk(device) -> dict:
     )
     # Padding never selected: every real score is negative, pad rows score 0.
     n_small, n_valid_small = 8192, 5000
-    neg = torch.zeros(n_small, dim, dtype=torch.bfloat16, device=device)
-    neg[:n_valid_small] = -_unit_rows(n_valid_small, dim, gen, device).abs()
-    pos = _unit_rows(batch, dim, gen, device).abs()
+    neg = torch.zeros(n_small, dim, dtype=dtype, device=device)
+    neg[:n_valid_small] = -_unit_rows(n_valid_small, dim, gen, device, dtype).abs()
+    pos = _unit_rows(batch, dim, gen, device, dtype).abs()
     err = max(
         err, _check_bin_topk_case("padding never selected", pos, neg, n_valid_small, k, bins)
     )
@@ -193,28 +207,35 @@ def check_bin_topk(device) -> dict:
     plain_ms = cuda_ms(
         lambda: K.bin_topk_carry_plain(q, corpus, n_real, bins, steal), 3
     )
+    # Yardstick the port never calls (TF32 is off: an f32 GEMM in f32).
     library_ms = cuda_ms(
         lambda: torch.topk(q @ corpus[:n_real].T, k, dim=1), reps
     )
-    bytes_moved = n_real * dim * 2 + batch * dim * 2 + bins * batch * 4
+    size = corpus.element_size()
+    bytes_moved = n_real * dim * size + batch * dim * size + bins * batch * 4
     # One counted launch is one wrapper call: the carry kernel over
     # `groups` slices of the super-tiles, then, when groups > 1, a max over
     # the groups' partial carries (groups * bins * B f32 read once).
     groups = K.supertile_groups(device, n_pad, batch, bins)
-    per_launch = ["bin_topk_carry_kernel"] + (
+    product = "F32Product" if f32 else "Bf16Product"
+    per_launch = [f"bin_carry_kernel<{product}>"] + (
         ["max_over_groups_kernel"] if groups > 1 else []
     )
+    # Operations once, at the card's fastest rate for the input type (TF32
+    # for float32 inputs; the 3xTF32 product itself runs three times as
+    # many).
     flops = 2.0 * n_real * batch * dim
-    b_ms, b_by = bound_ms(bytes_moved, flops)
+    b_ms, b_by = bound_ms(bytes_moved, flops, TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    name = "bin_topk_f32" if f32 else "bin_topk"
     log(
-        f"  bin_topk carry kernel {ms:.4f} ms (with top-k epilogue "
+        f"  {name} carry kernel {ms:.4f} ms (with top-k epilogue "
         f"{with_epilogue_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"library torch.topk(q @ corpus.T) {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms by {b_by}; one launch runs {per_launch} "
-        f"with groups={groups}"
+        f"bound {b_ms:.4f} ms by {b_by} ({bytes_moved / 1e6:.1f} MB); one "
+        f"launch runs {per_launch} with groups={groups}"
     )
     return {
-        "name": "bin_topk",
+        "name": name,
         "route": "cuda",
         "source": "lean_explore_tpu_torch/csrc/bin_topk.cu",
         "replaces": "lean_explore_tpu/ops/pallas_retrieval.py:402",
@@ -419,19 +440,21 @@ def _check_windowed_topk(name, scores, rows, want_scores, want_rows, exact_t, to
     return n_differ
 
 
-def check_windowed(device) -> dict:
+def check_windowed(device, dtype=torch.bfloat16) -> dict:
     from lean_explore_tpu_torch.ops import windowed as W
+    from lean_explore_tpu_torch.ops.bin_topk import score_tolerance
 
-    gen = torch.Generator(device=device).manual_seed(20)
+    f32 = dtype == torch.float32
+    gen = torch.Generator(device=device).manual_seed(40 if f32 else 20)
     n_real, dim, batch, window = 300_000, 1024, 128, 8
     n_pad = -(-n_real // 512) * 512
-    corpus = torch.zeros(n_pad, dim, dtype=torch.bfloat16, device=device)
-    corpus[:n_real] = _unit_rows(n_real, dim, gen, device)
-    q = _unit_rows(batch, dim, gen, device).float()
-    # Tolerance: bf16 inputs are exact in f32, so kernel and plain differ
-    # only in the order of the f32 sums: within twice the f32 dot-product
-    # error bound of unit rows of depth D.
-    tol = 2.0 * dim * 2.0**-24
+    corpus = torch.zeros(n_pad, dim, dtype=dtype, device=device)
+    corpus[:n_real] = _unit_rows(n_real, dim, gen, device, dtype)
+    q = _unit_rows(batch, dim, gen, device, dtype).float()
+    # Tolerance: ``score_tolerance`` (bf16 inputs are exact in f32, so kernel and
+    # plain differ only in the order of the f32 sums: within twice the f32
+    # dot-product error bound of unit rows of depth D).
+    tol = score_tolerance(dtype, dim)
     scores_t, wmax_t = W.fused_scores_wmax(q, corpus, n_real, window)
     plain_s, plain_w = W.fused_scores_wmax_plain(q, corpus, n_real, window)
     torch.cuda.synchronize()
@@ -444,8 +467,9 @@ def check_windowed(device) -> dict:
         if not e <= tol:
             raise AssertionError(f"windowed: {label} error {e} > {tol}")
         err = max(err, e)
+    name = "windowed_scores_f32" if f32 else "windowed_scores"
     log(
-        f"  windowed_scores: N={n_pad} n_valid={n_real} B={batch} W={window} "
+        f"  {name}: N={n_pad} n_valid={n_real} B={batch} W={window} "
         f"scores_t and wmax_t max_abs_err={err:.3g} (tol {tol:.3g})"
     )
     exact_t = plain_s  # the plain f32 scores, pad rows at -inf
@@ -464,27 +488,28 @@ def check_windowed(device) -> dict:
         lambda: W.windowed_topk(q, corpus, n_real, k=1000, window=window), reps
     )
     plain_ms = cuda_ms(lambda: W.fused_scores_wmax_plain(q, corpus, n_real, window), 3)
-    q_bf16 = q.to(torch.bfloat16)
+    q_lib = q.to(dtype)
 
-    def library():  # yardstick the port never calls
-        scores = q_bf16 @ corpus.T
+    def library():  # yardstick the port never calls (TF32 off for f32)
+        scores = q_lib @ corpus.T
         return scores, scores.view(batch, n_pad // window, window).amax(dim=2)
 
     library_ms = cuda_ms(library, reps)
+    size = corpus.element_size()
     bytes_moved = (
-        n_pad * dim * 2 + batch * dim * 2 + n_pad * batch * 4
+        n_pad * dim * size + batch * dim * size + n_pad * batch * 4
         + (n_pad // window) * batch * 4
     )
     flops = 2.0 * n_pad * batch * dim
-    b_ms, b_by = bound_ms(bytes_moved, flops)
+    b_ms, b_by = bound_ms(bytes_moved, flops, TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
     log(
-        f"  windowed_scores kernel {ms:.4f} ms (with the k=1000 selection "
+        f"  {name} kernel {ms:.4f} ms (with the k=1000 selection "
         f"{with_epilogue_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
         f"q @ corpus.T + window amax {library_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"by {b_by} ({bytes_moved / 1e6:.1f} MB)"
     )
     return {
-        "name": "windowed_scores",
+        "name": name,
         "route": "cuda",
         "source": "lean_explore_tpu_torch/csrc/windowed_scores.cu",
         "replaces": "lean_explore_tpu/ops/pallas_retrieval.py:60",
@@ -492,6 +517,126 @@ def check_windowed(device) -> dict:
         "max_abs_err": err,
         "ms": ms,
         "with_epilogue_ms": with_epilogue_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": library_ms,
+    }
+
+
+# ----------------------------------------------------------------------
+# Phase 3: K5 (flash_attention) against its plain version
+# ----------------------------------------------------------------------
+
+FLASH_B, FLASH_T, FLASH_NQ, FLASH_NKV, FLASH_DH = 64, 512, 16, 8, 128
+
+
+def flash_inputs(
+    batch: int, seq: int, lengths: list[int], seed: int, device, dtype=torch.bfloat16
+):
+    """q [B, T, NQ, DH], k and v [B, T, NKV, DH] of ``dtype`` from a seed
+    (unit normal, the scale of the trunk's RMS-normed q and k), and a
+    right-padded 0/1 mask [B, T] with the given valid lengths."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(heads):
+        return torch.randn(
+            batch, seq, heads, FLASH_DH, generator=gen, device=device
+        ).to(dtype)
+
+    q, k, v = draw(FLASH_NQ), draw(FLASH_NKV), draw(FLASH_NKV)
+    lens = torch.tensor(lengths, device=device)
+    mask = (torch.arange(seq, device=device)[None, :] < lens[:, None]).to(torch.int32)
+    return q, k, v, mask
+
+
+def _check_flash_case(name, q, k, v, mask) -> float:
+    """Kernel vs plain on one input, within
+    ``ops.flash_attention.kernel_tolerance`` (derived there); returns the
+    max error on valid rows. Pad rows are not compared (the TPU kernel leaves
+    them unspecified) but must be finite, like every output element."""
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
+    scale = FLASH_DH**-0.5
+    got = FA.attention_flash(q, k, v, mask, scale)
+    want = FA.attention_flash_plain(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash {name}: NaN or inf in the kernel's output")
+    valid = mask.bool()
+    got_v, want_v = got[valid].float(), want[valid].float()
+    tol = FA.kernel_tolerance(q, k, v, want_v)
+    err = float((got_v - want_v).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"flash {name}: valid-row error {err} > {tol}")
+    log(
+        f"  flash_attention {name} ({q.dtype}): B={q.shape[0]} T={q.shape[1]} "
+        f"valid rows max_abs_err={err:.3g} (tol {tol:.3g}), all outputs finite"
+    )
+    return err
+
+
+def check_flash_attention(device, dtype=torch.bfloat16) -> dict:
+    import torch.nn.functional as nnf
+
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
+    f32 = dtype == torch.float32
+    gen = torch.Generator().manual_seed(50)
+    ragged = [1, 255, 256, 257, 512, 64, 65, 128, 383, 384]
+    lengths = ragged + torch.randint(
+        1, FLASH_T + 1, (FLASH_B - len(ragged),), generator=gen
+    ).tolist()
+    q, k, v, mask = flash_inputs(FLASH_B, FLASH_T, lengths, 51, device, dtype)
+    # One left-padded row: its first key block lies wholly in the other
+    # segment, so the running max must recover from the mask value.
+    mask[-1] = 0
+    mask[-1, 130:] = 1
+    err = _check_flash_case("serving shape, ragged lengths 1..512", q, k, v, mask)
+    for label, lens in (("B=1 T=256 full", [256]), ("B=1 T=256 length 200", [200])):
+        err = max(
+            err, _check_flash_case(label, *flash_inputs(1, 256, lens, 52, device, dtype))
+        )
+
+    scale = FLASH_DH**-0.5
+    reps = 20
+    ms = cuda_ms(lambda: FA.attention_flash(q, k, v, mask, scale), reps)
+    plain_ms = cuda_ms(lambda: FA.attention_flash_plain(q, k, v, mask, scale), 3)
+    # Yardstick the port never calls: SDPA on [B, H, T, DH] views with the
+    # same boolean mask (causal and same segment) and grouped kv heads.
+    allowed = FA.allowed_keys(mask)[:, None]
+
+    def library():
+        return nnf.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=allowed, scale=scale, enable_gqa=True,
+        )
+
+    library_ms = cuda_ms(library, reps)
+    # Bytes: q, k, v and out once, and the mask. Operations: QK^T and PV
+    # (2 * DH each per pair) over the (query, key) pairs this mask allows.
+    bytes_moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + mask.numel() * 4
+    pairs = float(allowed.sum())
+    flops = 4.0 * FLASH_DH * FLASH_NQ * pairs
+    b_ms, b_by = bound_ms(bytes_moved, flops, TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    name = "flash_attention_f32" if f32 else "flash_attention"
+    log(
+        f"  {name} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"scaled_dot_product_attention(bool mask) {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({bytes_moved / 1e6:.1f} MB, "
+        f"{flops / 1e9:.1f} GFLOP over {pairs:.0f} allowed pairs)"
+    )
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "lean_explore_tpu_torch/csrc/flash_attention.cu",
+        "replaces": (
+            "lean_explore_tpu/models/qwen3.py:201 (jax/experimental/pallas/ops/"
+            "tpu/flash_attention.py:758, JAX 0.9.0)"
+        ),
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
@@ -539,9 +684,14 @@ def main() -> int:
     with Phase("kernels against their plain versions"):
         kernels = [
             check_bin_topk(device),
+            check_bin_topk(device, torch.float32),
             check_bin_topk_int8(device),
             check_windowed(device),
+            check_windowed(device, torch.float32),
+            check_flash_attention(device),
+            check_flash_attention(device, torch.float32),
         ]
+        torch.cuda.empty_cache()
 
     if not args.kernels:
         with Phase("serving paths at full width"):
@@ -811,12 +961,18 @@ def build_service(device, tmp: str, n_rows: int = N_ROWS) -> Serving:
 
 def launch_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from lean_explore_tpu_torch.ops import bin_topk, bin_topk_int8, windowed
+    from lean_explore_tpu_torch.ops import (
+        bin_topk,
+        bin_topk_int8,
+        flash_attention,
+        windowed,
+    )
 
     return {
         "bin_topk": bin_topk.bin_topk_carry,
         "bin_topk_int8": bin_topk_int8.bin_topk_int8_carry,
         "windowed_scores": windowed.fused_scores_wmax,
+        "flash_attention": flash_attention.attention_flash,
     }
 
 
@@ -929,6 +1085,17 @@ def run_service(device, kernels, card) -> None:
             by_name["windowed_scores"]["launches"] = run_windowed_search(
                 embedder, bf16, card
             )
+        with Phase("4d. flash attention: embed_sync at T=512 (bf16, f32), rerank_pairs_sync at T=256"):
+            embed_launches, rerank_launches, f32_launches = run_flash_path(
+                embedder, serving.reranker, card
+            )
+            by_name["flash_attention"]["launches"] = embed_launches
+            by_name["flash_attention"]["rerank_launches"] = rerank_launches
+            by_name["flash_attention_f32"]["launches"] = f32_launches
+        with Phase("4e. DenseIndex.search over a float32 corpus"):
+            k1, k3 = run_f32_corpus_search(embedder, bf16.ids, card)
+            by_name["bin_topk_f32"]["launches"] = k1
+            by_name["windowed_scores_f32"]["launches"] = k3
         log(f"  lexcore native {lexcore}")
 
 
@@ -960,6 +1127,219 @@ def run_windowed_search(embedder, dense, card) -> int:
         f"{launched.counts}; {card}"
     )
     return launched.counts["windowed_scores"]
+
+
+FLASH_ENV = "LEAN_EXPLORE_FLASH_ATTENTION"
+FLASH_DOCS = 64
+# P(true) of the two attention paths may differ by this much: they differ
+# only in where the attention probabilities are rounded to bf16 (2^-9
+# relative per rounding), which through 28 layers moves the pooled hidden
+# state by a few parts in a thousand (the embeddings' cosine gate, 0.999);
+# P(true) = sigmoid(l_true - l_false) moves by at most a quarter of the
+# logit difference, a 0.02 logit shift giving 0.005.
+RERANK_FLASH_TOL = 0.02
+
+
+def long_documents(n: int, lo: int, hi: int, seed: int) -> list[str]:
+    """n synthetic documents of lo..hi-1 corpus words (one token each)."""
+    rng = np.random.default_rng(seed)
+    return [
+        " ".join(WORDS[j] for j in rng.integers(0, len(WORDS), int(rng.integers(lo, hi))))
+        for _ in range(n)
+    ]
+
+
+FLASH_REPS = 3
+
+
+def _timed(fn, flash: bool, reps: int = FLASH_REPS):
+    """(result, mean seconds, launch counts of each call) of ``reps`` calls
+    of fn with the flash variable set or unset, every count set to 0 just
+    before each call and read just after it."""
+    if flash:
+        os.environ[FLASH_ENV] = "1"
+    else:
+        os.environ.pop(FLASH_ENV, None)
+    seconds, counts = 0.0, []
+    try:
+        for _ in range(reps):
+            with CountLaunches() as launched:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                seconds += time.perf_counter() - t0
+            counts.append(launched.counts)
+    finally:
+        os.environ.pop(FLASH_ENV, None)
+    return out, seconds / reps, counts
+
+
+def _expect_flash(path: str, per_call: list[dict], launches: int) -> None:
+    """Every call launched K5 ``launches`` times and no other kernel."""
+    for counts in per_call:
+        if counts["flash_attention"] != launches:
+            raise AssertionError(
+                f"{path}: flash_attention launched {counts['flash_attention']} "
+                f"times in a call, want {launches}"
+            )
+        others = {n: c for n, c in counts.items() if n != "flash_attention" and c}
+        if others:
+            raise AssertionError(f"{path}: other kernels launched: {others}")
+
+
+def compare_embed_modes(client, docs: list[str], label: str, card: str) -> int:
+    """embed_sync of ``docs`` (one forward batch in the 512-token bucket)
+    three times with LEAN_EXPLORE_FLASH_ATTENTION=1 and three times without,
+    after a warm call of each: K5 launches once per layer in every flagged
+    call and never otherwise, and the embeddings agree (cosine >= 0.999 per
+    row). Returns K5's launches in one flagged call."""
+    from lean_explore_tpu_torch.models.tokenizer import encode_batch
+
+    width = encode_batch(client.tokenizer, docs, max_length=client.max_length)
+    if width.input_ids.shape[1] != 512 or len(docs) > client.batch_size:
+        raise AssertionError(f"{label}: not one forward batch in the 512 bucket")
+    for flash in (True, False):  # warm both paths at these shapes
+        _timed(lambda: client.embed_sync(docs), flash, reps=1)
+    emb_flash, s_flash, c_flash = _timed(lambda: client.embed_sync(docs), True)
+    emb_plain, s_plain, c_plain = _timed(lambda: client.embed_sync(docs), False)
+    _expect_flash(f"{label} with flash", c_flash, client.config.num_hidden_layers)
+    _expect_flash(f"{label} without flash", c_plain, 0)
+    if not (np.isfinite(emb_flash).all() and emb_flash.shape == emb_plain.shape):
+        raise AssertionError(f"{label}: flash embeddings not finite or misshapen")
+    cosine = (emb_flash * emb_plain).sum(axis=1) / (
+        np.linalg.norm(emb_flash, axis=1) * np.linalg.norm(emb_plain, axis=1)
+    )
+    diff = float(np.abs(emb_flash - emb_plain).max())
+    if not float(cosine.min()) >= 0.999:
+        raise AssertionError(f"{label}: flash vs einsum min cosine {cosine.min()}")
+    log(
+        f"  {label} of {len(docs)} docs at T=512: flash "
+        f"{len(docs) / s_flash:.2f} docs/s, einsum {len(docs) / s_plain:.2f} "
+        f"docs/s; min cosine {float(cosine.min()):.8f}, max abs diff {diff:.3g}; "
+        f"K5 launches {c_flash[0]['flash_attention']} per call (0 without); "
+        f"mean of {FLASH_REPS} calls each; {card}"
+    )
+    return c_flash[0]["flash_attention"]
+
+
+def run_flash_path(embedder, reranker, card) -> tuple[int, int, int]:
+    """The flash path on the phase-4 clients: embed_sync of 64 documents in
+    the 512-token bucket (``compare_embed_modes``), rerank_pairs_sync of 64
+    pairs in the 256-token bucket the same way (scores within
+    RERANK_FLASH_TOL), then embed_sync on a float32 copy of the embedder
+    (K5's f32 instantiation). Returns K5's launches in one flagged call of
+    each: bf16 embed, rerank, f32 embed."""
+    from lean_explore_tpu_torch.models.tokenizer import encode_batch
+    from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+
+    embed_launches = compare_embed_modes(
+        embedder, long_documents(FLASH_DOCS, 300, 511, seed=60), "embed_sync", card
+    )
+
+    queries = [f"{WORDS[i * 7 % 3000]} nat thing {i}" for i in range(FLASH_DOCS)]
+    pair_docs = long_documents(FLASH_DOCS, 200, 300, seed=61)
+    pairs = [reranker._format_pair(q, d) for q, d in zip(queries, pair_docs)]
+    width = encode_batch(reranker.tokenizer, pairs, max_length=reranker.max_length)
+    if width.input_ids.shape[1] != 256 or FLASH_DOCS > reranker.batch_size:
+        raise AssertionError("pairs are not one forward batch in the 256 bucket")
+    for flash in (True, False):
+        _timed(lambda: reranker.rerank_pairs_sync(queries, pair_docs), flash, reps=1)
+    sc_flash, r_flash, rc_flash = _timed(
+        lambda: reranker.rerank_pairs_sync(queries, pair_docs), True
+    )
+    sc_plain, r_plain, rc_plain = _timed(
+        lambda: reranker.rerank_pairs_sync(queries, pair_docs), False
+    )
+    _expect_flash("rerank_pairs_sync with flash", rc_flash, reranker.config.num_hidden_layers)
+    _expect_flash("rerank_pairs_sync without flash", rc_plain, 0)
+    sc_flash, sc_plain = np.asarray(sc_flash), np.asarray(sc_plain)
+    score_diff = float(np.abs(sc_flash - sc_plain).max())
+    if not (np.isfinite(sc_flash).all() and score_diff <= RERANK_FLASH_TOL):
+        raise AssertionError(
+            f"flash vs einsum rerank scores differ by {score_diff} > {RERANK_FLASH_TOL}"
+        )
+    log(
+        f"  rerank_pairs_sync of {FLASH_DOCS} pairs at T=256: flash "
+        f"{FLASH_DOCS / r_flash:.2f} pairs/s, einsum {FLASH_DOCS / r_plain:.2f} "
+        f"pairs/s; max score diff {score_diff:.3g} (tol {RERANK_FLASH_TOL}); "
+        f"K5 launches {rc_flash[0]['flash_attention']} per call (0 without); "
+        f"mean of {FLASH_REPS} calls each; {card}"
+    )
+
+    f32_client = EmbeddingClient.from_components(
+        as_float32(embedder.params), embedder.config, embedder.tokenizer,
+        model_name="smoke-qwen3-0.6b-embed-f32", max_length=embedder.max_length,
+        batch_size=embedder.batch_size, query_prompt=embedder.query_prompt,
+    )
+    f32_launches = compare_embed_modes(
+        f32_client, long_documents(FLASH_DOCS, 300, 511, seed=62), "f32 embed_sync", card
+    )
+    del f32_client
+    torch.cuda.empty_cache()
+    return embed_launches, rc_flash[0]["flash_attention"], f32_launches
+
+
+def as_float32(params: dict) -> dict:
+    """A float32 copy of a trunk's params (the clients' parity setting)."""
+    def cast(value):
+        if value is None:
+            return None
+        if isinstance(value, dict):
+            return {name: w.float() for name, w in value.items()}
+        return value.float()
+
+    return {name: cast(value) for name, value in params.items()}
+
+
+def run_f32_corpus_search(embedder, ids, card) -> tuple[int, int]:
+    """The phase-4 corpus held in float32 on the card, searched with the
+    query embeddings of two serving batches: the default method takes K1's
+    f32 instantiation (recall@10 against the exact f32 scan >= 0.97), the
+    windowed method K3's (scores within score_tolerance of the exact scan, ids
+    equal away from near ties). Returns their launches."""
+    from lean_explore_tpu_torch.index.dense import DenseIndex
+    from lean_explore_tpu_torch.ops.bin_topk import score_tolerance
+
+    dense = DenseIndex(seeded_corpus(embedder.device, len(ids), embedder.dim), ids)
+    embs = [embedder.embed_device(queries_for(rep), True) for rep in range(2)]
+    torch.cuda.synchronize()
+    with CountLaunches() as auto_launched:
+        t0 = time.perf_counter()
+        got = [dense.search(e, 10) for e in embs]
+        torch.cuda.synchronize()
+        auto_ms = (time.perf_counter() - t0) / len(embs) * 1e3
+    expect_launches("f32 corpus, default method", auto_launched.counts, "bin_topk", len(embs))
+    with CountLaunches() as win_launched:
+        t0 = time.perf_counter()
+        got_win = [dense.search(e, 10, method="windowed") for e in embs]
+        torch.cuda.synchronize()
+        win_ms = (time.perf_counter() - t0) / len(embs) * 1e3
+    expect_launches(
+        "f32 corpus, windowed", win_launched.counts, "windowed_scores", len(embs)
+    )
+    t0 = time.perf_counter()
+    want = [dense.search(e, 10, method="full") for e in embs]
+    full_ms = (time.perf_counter() - t0) / len(embs) * 1e3
+    recall = float(np.mean([
+        len(set(g) & set(w)) / 10 for a, b in zip(got, want) for g, w in zip(a[1], b[1])
+    ]))
+    if not recall >= 0.97:
+        raise AssertionError(f"f32 corpus: recall@10 {recall} below 0.97")
+    tol = score_tolerance(torch.float32, embedder.dim)
+    err = max(float(np.abs(g[0] - w[0]).max()) for g, w in zip(got_win, want))
+    if not err <= tol:
+        raise AssertionError(f"f32 corpus windowed: score error {err} > {tol}")
+    n_differ = sum(int((g[1] != w[1]).sum()) for g, w in zip(got_win, want))
+    log(
+        f"  f32 corpus {tuple(dense.embeddings.shape)}: default method "
+        f"{auto_ms:.2f} ms per batch of {BATCH}, recall@10 vs the exact f32 scan "
+        f"{recall:.4f}; windowed {win_ms:.2f} ms, max score error {err:.3g} (tol "
+        f"{tol:.3g}), ids differing at near ties {n_differ}; full scan "
+        f"{full_ms:.2f} ms; launches {auto_launched.counts} then "
+        f"{win_launched.counts}; {card}"
+    )
+    return auto_launched.counts["bin_topk"], win_launched.counts["windowed_scores"]
 
 
 def check_results(responses, store) -> None:

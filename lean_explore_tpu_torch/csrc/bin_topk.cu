@@ -8,7 +8,8 @@
 //     packed(r, q) = bits(max(score(r, q) + 3, 1e-30)) with the low
 //                    `steal_bits` mantissa bits replaced by r / bins,
 //
-// where score is the bf16 x bf16 inner product accumulated in f32, and pad
+// where score is the bf16 x bf16 inner product accumulated in f32 (or, for
+// a float32 corpus, the f32 x f32 one as 3xTF32, see below), and pad
 // rows (r >= n_valid) contribute bits(0) | (r / bins). All packed values are
 // non-negative, so float order equals the order of their bit patterns and a
 // plain max folds score and provenance together. The top-k epilogue over
@@ -32,6 +33,17 @@
 // work. The kernel is `tiles::bin_carry_kernel<Bf16Product>` of
 // mma_tiles.cuh, which it shares with the int8 version (bin_topk_int8.cu).
 //
+// A float32 corpus takes `tiles::bin_carry_kernel<F32Product>`: the same
+// tiles, where a 128-byte stage holds 32 f32 values and each 32-byte slice
+// is one mma.sync m16n8k8 tf32 step, taken three times as 3xTF32 (hi*hi +
+// hi*lo + lo*hi), which keeps the products within about 3 * 2^-22 of f32.
+// The TPU kernel runs f32 at HIGHEST precision (pallas_retrieval.py:156).
+// The function's bound at the serving shape is by bytes: the corpus read
+// is 1.229 GB, 0.37 ms at 3.35 TB/s, against 78.6 GFLOP, 0.16 ms at the
+// 495 TFLOP/s TF32 rate. 3xTF32 runs three products, 0.48 ms of tensor
+// time, so this kernel cannot reach that bound; it is the simple exact
+// choice, and a faster f32 product is later work.
+//
 // Bound at the serving shape (N = 300,032 rows padded to 512, D = 1024,
 // B = 128, bins = 4096): the corpus read is 300,032 * 1024 * 2 B = 614 MB,
 // 0.18 ms at 3.35 TB/s; the arithmetic is 2 * 300,032 * 128 * 1024 =
@@ -51,6 +63,16 @@ int bin_topk_carry(const void* q, const void* corpus, void* out, void* partial, 
                    void* stream) {
   return tiles::launch_bin_carry<tiles::Bf16Product>(
       q, corpus, nullptr, nullptr, out, partial, B, N, D * 2, n_valid, bins, steal_bits,
+      groups, stream);
+}
+
+// The same carry over a float32 corpus and float32 queries (3xTF32).
+// Requires N % 64 == 0, bins % 64 == 0 and D % 32 == 0.
+int bin_topk_carry_f32(const void* q, const void* corpus, void* out, void* partial, int B,
+                       int N, int D, int n_valid, int bins, int steal_bits, int groups,
+                       void* stream) {
+  return tiles::launch_bin_carry<tiles::F32Product>(
+      q, corpus, nullptr, nullptr, out, partial, B, N, D * 4, n_valid, bins, steal_bits,
       groups, stream);
 }
 

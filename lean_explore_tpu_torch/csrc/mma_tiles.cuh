@@ -1,19 +1,21 @@
 // Building blocks shared by the port's tiled-product kernels (bin_topk.cu,
-// bin_topk_int8.cu, windowed_scores.cu).
+// bin_topk_int8.cu, windowed_scores.cu, flash_attention.cu).
 //
 // Each block computes 64 x 64 tiles of (corpus rows) x (queries) with four
 // warps of 32 x 32. Both operands are row-major with the depth contiguous
 // (corpus [N, D], queries [B, D]), so the depth is walked in stages of 128
-// bytes: 64 bf16 or 128 int8 values. Double-buffered cp.async copies each
-// stage into shared memory and ldmatrix feeds it to mma.sync. The fragment
-// layouts of m16n8k16 bf16 and m16n8k32 s8 are the same byte for byte (each
-// 32-bit register holds 4 bytes of one row), so one loader and one
-// ldmatrix walk serve both; only the mma instruction differs.
+// bytes: 64 bf16, 128 int8 or 32 f32 values. Double-buffered cp.async
+// copies each stage into shared memory and ldmatrix feeds it to mma.sync.
+// The fragment layouts of m16n8k16 bf16, m16n8k32 s8 and m16n8k8 tf32 are
+// the same byte for byte (each 32-bit register holds 4 bytes of one row:
+// two bf16, four int8 or one f32), so one loader and one ldmatrix walk
+// serve all three: each 32-byte slice of a stage is one mma k-step, and
+// only the mma instruction differs.
 //
 // The bin-max carry kernel (the port of the TPU's `_bin_topk_kernel` and
 // `_bin_topk_kernel_int8`, lean_explore_tpu/ops/pallas_retrieval.py:214 and
 // :260) is defined here once as a template over the product type, so the
-// bf16 and int8 versions share their tiling and their packing.
+// bf16, f32 and int8 versions share their tiling and their packing.
 
 #pragma once
 
@@ -65,6 +67,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 struct Bf16Product {
   using Acc = float;
   static constexpr bool kScaled = false;
+  static constexpr bool kSplit = false;
   __device__ static __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
     asm volatile(
@@ -75,12 +78,57 @@ struct Bf16Product {
   }
 };
 
+// f32 x f32 products as 3xTF32 (the TPU kernels take f32 at HIGHEST
+// precision, pallas_retrieval.py:156): each operand x is split into
+// hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest, and the
+// product is accumulated in f32 as lo*hi + hi*lo + hi*hi, dropping lo*lo.
+// x - hi - lo is at most 2^-22 |x|, so each product is within about
+// 3 * 2^-22 |x y| of the exact one before the f32 sums (the tolerance is
+// derived in ops/bin_topk.py, score_tolerance). `split` runs once per
+// loaded fragment.
+struct F32Product {
+  using Acc = float;
+  static constexpr bool kScaled = false;
+  static constexpr bool kSplit = true;
+  __device__ static __forceinline__ uint32_t to_tf32(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+    return r;
+  }
+  template <int R>
+  __device__ static __forceinline__ void split(const uint32_t (&x)[R], uint32_t (&hi)[R],
+                                               uint32_t (&lo)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float v = __uint_as_float(x[i]);
+      hi[i] = to_tf32(v);
+      lo[i] = to_tf32(v - __uint_as_float(hi[i]));
+    }
+  }
+  __device__ static __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  __device__ static __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_hi)[4],
+                                              const uint32_t (&a_lo)[4], uint32_t b0_hi,
+                                              uint32_t b1_hi, uint32_t b0_lo, uint32_t b1_lo) {
+    mma_tf32(c, a_lo, b0_hi, b1_hi);
+    mma_tf32(c, a_hi, b0_lo, b1_lo);
+    mma_tf32(c, a_hi, b0_hi, b1_hi);
+  }
+};
+
 // int8 x int8 products accumulated exactly in int32; a score is
 // (raw * row_scale) * query_scale in f32, each step rounded on its own
 // (never contracted into an FMA), the order of the TPU kernel (:286-288).
 struct Int8Product {
   using Acc = int32_t;
   static constexpr bool kScaled = true;
+  static constexpr bool kSplit = false;
   __device__ static __forceinline__ void mma(int32_t (&c)[4], const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
     asm volatile(
@@ -142,14 +190,32 @@ __device__ __forceinline__ void mma_stage(typename P::Acc (&acc)[2][4][4], const
       const int c = kk + ((lane >> 3) & 1) * 16;
       ldmatrix_x4(b_frag[nj], b_tile + r * LDS + c);
     }
+    if constexpr (P::kSplit) {
+      uint32_t a_hi[2][4], a_lo[2][4], b_hi[2][4], b_lo[2][4];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint32_t* bf = b_frag[ni >> 1];
-        const int h = (ni & 1) * 2;
-        P::mma(acc[mi][ni], a_frag[mi], bf[h], bf[h + 1]);
+      for (int i = 0; i < 2; ++i) {
+        P::split(a_frag[i], a_hi[i], a_lo[i]);
+        P::split(b_frag[i], b_hi[i], b_lo[i]);
       }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int j = ni >> 1;
+          const int h = (ni & 1) * 2;
+          P::mma3(acc[mi][ni], a_hi[mi], a_lo[mi], b_hi[j][h], b_hi[j][h + 1], b_lo[j][h],
+                  b_lo[j][h + 1]);
+        }
+    } else {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const uint32_t* bf = b_frag[ni >> 1];
+          const int h = (ni & 1) * 2;
+          P::mma(acc[mi][ni], a_frag[mi], bf[h], bf[h + 1]);
+        }
+    }
   }
 }
 

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel `_fused_kernel` reached through `fused_scores_wmax`
 // (lean_explore_tpu/ops/pallas_retrieval.py:30 and :60), which feeds
 // `pallas_windowed_topk` (:653). For a bf16 corpus [N, D] and bf16 queries
-// [B, D] it writes
+// [B, D] (or both float32) it writes
 //
 //     scores_t[r, q] = <corpus[r], queries[q]> in f32 (-inf for r >= n_valid)
 //     wmax_t[w, q]   = max over r in [w * W, (w + 1) * W) of scores_t[r, q]
@@ -17,8 +17,10 @@
 //
 // Design: one block per 64-row corpus tile and 64-query block, the query
 // block fastest in the grid so that neighbouring blocks read the same
-// corpus tile and the second read hits L2. The product is the bf16
-// mma.sync tiling of mma_tiles.cuh over the whole depth. The 64 x 64
+// corpus tile and the second read hits L2. The product is the mma.sync
+// tiling of mma_tiles.cuh over the whole depth: bf16, or for a float32
+// corpus the 3xTF32 product (F32Product, the TPU's f32 at HIGHEST
+// precision), whose 128-byte stages hold 32 f32 values. The 64 x 64
 // accumulator tile then goes through shared memory (reusing the stage
 // buffers), where pad rows are masked, so that the score rows are written
 // coalesced and each window's max is taken from shared memory before the
@@ -28,6 +30,9 @@
 // corpus read is 614 MB, the scores written 153.6 MB and the window maxima
 // 19.2 MB, about 787 MB or 0.235 ms at 3.35 TB/s; the arithmetic is
 // 78.6 GFLOP, 0.080 ms at 989 TFLOP/s bf16. The kernel is bound by bytes.
+// The f32 version reads a 1.229 GB corpus and writes the same 172.8 MB,
+// about 0.42 ms, bound by bytes (78.6 GFLOP is 0.16 ms at the 495 TFLOP/s
+// TF32 rate); its three tf32 products take 0.48 ms of tensor time.
 
 #include <math_constants.h>
 
@@ -38,9 +43,10 @@ namespace {  // the header's internal namespace, reopened
 
 constexpr int TILE_LD = BN + 4;  // f32 row stride of the staged score tile
 
+template <class P>
 __global__ void __launch_bounds__(THREADS)
-windowed_scores_kernel(const uint8_t* __restrict__ q,       // [B, D] bf16
-                       const uint8_t* __restrict__ corpus,  // [N, D] bf16
+windowed_scores_kernel(const uint8_t* __restrict__ q,       // [B, D] bf16 or f32
+                       const uint8_t* __restrict__ corpus,  // [N, D], q's dtype
                        float* __restrict__ scores_t,        // [N, B]
                        float* __restrict__ wmax_t,          // [N / window, B]
                        int B, int row_bytes, int n_valid, int window, int q_blocks) {
@@ -76,7 +82,7 @@ windowed_scores_kernel(const uint8_t* __restrict__ q,       // [B, D] bf16
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    mma_stage<Bf16Product>(acc, smem_a[buf], smem_b[buf], warp_m, warp_n, lane);
+    mma_stage<P>(acc, smem_a[buf], smem_b[buf], warp_m, warp_n, lane);
     __syncthreads();
   }
   cp_async_wait_all();
@@ -114,24 +120,38 @@ windowed_scores_kernel(const uint8_t* __restrict__ q,       // [B, D] bf16
   }
 }
 
+template <class P>
+int launch_windowed_scores(const void* q, const void* corpus, void* scores_t, void* wmax_t,
+                           int B, int N, int row_bytes, int n_valid, int window,
+                           void* stream) {
+  const int q_blocks = (B + BN - 1) / BN;
+  const long long blocks = (long long)(N / BM) * q_blocks;
+  windowed_scores_kernel<P><<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus),
+      static_cast<float*>(scores_t), static_cast<float*>(wmax_t), B, row_bytes, n_valid,
+      window, q_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace tiles
 
 extern "C" {
 
-// Writes scores_t [N, B] and wmax_t [N / window, B] (f32). Requires
-// N % 64 == 0, D % 64 == 0 and 64 % window == 0 (the wrapper checks).
-// Returns cudaGetLastError() after the launch.
+// Writes scores_t [N, B] and wmax_t [N / window, B] (f32) for bf16 inputs.
+// Requires N % 64 == 0, D % 64 == 0 and 64 % window == 0 (the wrapper
+// checks). Returns cudaGetLastError() after the launch.
 int windowed_scores(const void* q, const void* corpus, void* scores_t, void* wmax_t, int B,
                     int N, int D, int n_valid, int window, void* stream) {
-  using namespace tiles;
-  const int q_blocks = (B + BN - 1) / BN;
-  const long long blocks = (long long)(N / BM) * q_blocks;
-  windowed_scores_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus),
-      static_cast<float*>(scores_t), static_cast<float*>(wmax_t), B, D * 2, n_valid, window,
-      q_blocks);
-  return static_cast<int>(cudaGetLastError());
+  return tiles::launch_windowed_scores<tiles::Bf16Product>(
+      q, corpus, scores_t, wmax_t, B, N, D * 2, n_valid, window, stream);
+}
+
+// The same for float32 inputs (3xTF32). Requires D % 32 == 0.
+int windowed_scores_f32(const void* q, const void* corpus, void* scores_t, void* wmax_t,
+                        int B, int N, int D, int n_valid, int window, void* stream) {
+  return tiles::launch_windowed_scores<tiles::F32Product>(
+      q, corpus, scores_t, wmax_t, B, N, D * 4, n_valid, window, stream);
 }
 
 }  // extern "C"

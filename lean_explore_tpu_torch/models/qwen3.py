@@ -17,18 +17,22 @@ serving) with f32 accumulation; RMSNorm, attention scores, softmax and the
 logits run in f32. Positions are ``arange(T)`` whatever the padding. The
 attention mask is an additive -1e9 bias, never a boolean mask: a fully
 masked pad row would give NaN softmax rows that leak into valid rows.
-Attention is plain torch ops (the JAX trunk's is XLA einsums, not a
-hand-written kernel). Only the two scored vocabulary columns of the head are
-computed for reranking.
+Attention is plain torch ops (the JAX trunk's default is XLA einsums), or,
+opt-in through LEAN_EXPLORE_FLASH_ATTENTION as in the JAX trunk, the flash
+attention of ``ops.flash_attention``: the hand-written Hopper kernel on the
+card, the port of the Pallas TPU kernel the JAX trunk calls there. Only the
+two scored vocabulary columns of the head are computed for reranking.
 """
 
 import json
+import os
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from lean_explore_tpu_torch.ops import flash_attention as flash_ops
 from lean_explore_tpu_torch.util.platform import resolve_device
 
 
@@ -169,6 +173,32 @@ def _attention(q, k, v, bias):
     return out.reshape(b, t, nq * dh)
 
 
+def _attention_flash(q, k, v, attention_mask):
+    """Flash attention (lean_explore_tpu/models/qwen3.py:201-236): the
+    [B, T, T] probabilities never exist. Padding is expressed as segment
+    ids (the 0/1 mask: pad tokens in segment 0, valid ones in segment 1),
+    so a valid query sees only valid keys; pad rows' outputs are discarded
+    by the mask-aware pooling. GQA takes kv head h / (NQ / NKV) inside the
+    kernel, the JAX path's ``jnp.repeat`` without the copy."""
+    dh = q.shape[-1]
+    return flash_ops.attention_flash(q, k, v, attention_mask, dh**-0.5)
+
+
+FLASH_MIN_SEQ = 256
+
+
+def _use_flash(seq_len: int, device) -> bool:
+    """Opt-in via LEAN_EXPLORE_FLASH_ATTENTION (any non-empty value, as in
+    the JAX trunk): seq >= 256 and a multiple of 128, on a CUDA device (in
+    the place of the JAX trunk's TPU backend). Off by default; no speed is
+    claimed for it."""
+    if not os.environ.get("LEAN_EXPLORE_FLASH_ATTENTION"):
+        return False
+    if seq_len < FLASH_MIN_SEQ or seq_len % 128 != 0:
+        return False
+    return torch.device(device).type == "cuda"
+
+
 def _layer_params(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["layers"].items()}
 
@@ -190,14 +220,21 @@ def _layer_body(x, p, *, lead, nq, nkv, dh, eps, rope, attend):
     return x + (torch.nn.functional.silu(gate) * up) @ p["down_proj"], (k, v)
 
 
-def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool):
+def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool, flash=False):
     batch, seq = input_ids.shape
     device = input_ids.device
     x = params["embed"][input_ids.long()]
     cos, sin = _rope_tables(config, seq, device)
-    causal = torch.tril(torch.ones(seq, seq, dtype=torch.bool, device=device))
-    valid_key = attention_mask.to(torch.bool)[:, None, None, :]
-    bias = _additive_bias(causal[None, None] & valid_key)  # [B,1,T,T]
+    if flash:
+        def attend(q, k, v):
+            return _attention_flash(q, k, v, attention_mask)
+    else:
+        causal = torch.tril(torch.ones(seq, seq, dtype=torch.bool, device=device))
+        valid_key = attention_mask.to(torch.bool)[:, None, None, :]
+        bias = _additive_bias(causal[None, None] & valid_key)  # [B,1,T,T]
+
+        def attend(q, k, v):
+            return _attention(q, k, v, bias)
     c = cos[None, :, None, :].to(x.dtype)
     s = sin[None, :, None, :].to(x.dtype)
     nq, nkv, dh = (
@@ -211,7 +248,7 @@ def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool):
             x, _layer_params(params, i), lead=(batch, seq), nq=nq, nkv=nkv,
             dh=dh, eps=config.rms_norm_eps,
             rope=lambda t: t * c + _rotate_half(t) * s,
-            attend=lambda q, k, v: _attention(q, k, v, bias),
+            attend=attend,
         )
         if keep_kv:
             ks.append(k)
@@ -220,9 +257,21 @@ def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool):
 
 
 @torch.no_grad()
-def forward_hidden(params, config, input_ids, attention_mask) -> torch.Tensor:
-    """Trunk forward: [B, T] ids + 0/1 mask -> final-norm hidden [B, T, H]."""
-    x, _, _ = _trunk(params, config, input_ids, attention_mask, keep_kv=False)
+def forward_hidden(
+    params, config, input_ids, attention_mask, *, flash: bool | None = None
+) -> torch.Tensor:
+    """Trunk forward: [B, T] ids + 0/1 mask -> final-norm hidden [B, T, H].
+
+    flash=None defers to ``_use_flash`` (LEAN_EXPLORE_FLASH_ATTENTION, off
+    by default); flash=True takes ``ops.flash_attention`` whatever the
+    device (its plain twin on the CPU). The variable is read on every call;
+    the JAX trunk reads it at trace time, once per compiled shape.
+    """
+    if flash is None:
+        flash = _use_flash(int(input_ids.shape[1]), input_ids.device)
+    x, _, _ = _trunk(
+        params, config, input_ids, attention_mask, keep_kv=False, flash=flash
+    )
     return _rms_norm(x, params["final_norm"], config.rms_norm_eps)
 
 
@@ -257,6 +306,21 @@ def embed_pool_from_ids(params, config, input_ids, lengths) -> torch.Tensor:
         torch.arange(seq, device=input_ids.device)[None, :] < valid_len[:, None]
     ).to(torch.int32)
     return embed_pool(params, config, input_ids, mask)
+
+
+def _lm_head(params, hidden: torch.Tensor) -> torch.Tensor:
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return hidden.to(torch.float32) @ head.to(torch.float32)
+
+
+@torch.no_grad()
+def last_token_logits(params, config, input_ids, attention_mask) -> torch.Tensor:
+    """Logits at the last valid position only, [B, V] f32: the head runs on
+    one position instead of all T."""
+    hidden = forward_hidden(params, config, input_ids, attention_mask)
+    return _lm_head(params, _pool_last(hidden, attention_mask))
 
 
 def _pair_logits(params, hidden, token_false: int, token_true: int):

@@ -10,9 +10,11 @@ and pad rows (r >= n_valid) store 0. The epilogue takes the top-k over
 never exists.
 
 On a CUDA tensor ``bin_topk_carry`` launches the hand-written kernel in
-``csrc/bin_topk.cu`` (design and bound in its header note); on a CPU tensor
-it runs ``bin_topk_carry_plain``, the same arithmetic in torch ops. There is
-no fallback from one to the other.
+``csrc/bin_topk.cu`` (design and bound in its header note): the bf16
+product for a bf16 corpus, the 3xTF32 one for a float32 corpus (the TPU
+kernel's f32 at HIGHEST precision). On a CPU tensor it runs
+``bin_topk_carry_plain``, the same arithmetic in torch ops. There is no
+fallback from one to the other.
 
 Differences from the TPU version:
 
@@ -33,9 +35,18 @@ from lean_explore_tpu_torch.ops.cuda_build import load_library
 PACK_SHIFT = 3.0
 PACK_FLOOR = 1e-30
 # Kernel tile sizes (csrc/mma_tiles.cuh BM, STAGE_BYTES): corpus rows and
-# bins come in slices of 64, and the depth in stages of 128 bytes (64 bf16).
+# bins come in slices of 64, and the depth in stages of 128 bytes: 64 bf16
+# or 32 f32 values.
 ROW_MULTIPLE = 64
-DEPTH_MULTIPLE = 64
+STAGE_BYTES = 128
+
+# The float dtypes the carry kernel takes, with the entry point of each.
+KERNEL_ENTRIES = {torch.bfloat16: "bin_topk_carry", torch.float32: "bin_topk_carry_f32"}
+
+
+def depth_multiple(dtype: torch.dtype) -> int:
+    """Depth values per 128-byte pipeline stage of the tiled kernels."""
+    return STAGE_BYTES // dtype.itemsize
 
 
 def steal_bits_for(n_rows: int, bins: int) -> int:
@@ -79,8 +90,9 @@ def bin_topk_carry_plain(
     """The packed carry [bins, B] in torch ops: the kernel's plain twin.
 
     Products are taken in float32 from the inputs' values (bf16 inputs are
-    exact in f32), so the only difference from the kernel is the order of
-    the f32 sums.
+    exact in f32; TF32 is off), so the only difference from the bf16 kernel
+    is the order of the f32 sums, and from the f32 kernel that and its
+    3xTF32 split.
     """
     qf = queries.to(torch.float32)
     return fold_supertiles(
@@ -89,10 +101,32 @@ def bin_topk_carry_plain(
     )
 
 
+def score_tolerance(dtype: torch.dtype, dim: int) -> float:
+    """How far the tiled kernels' (K1, K3) inner product of unit rows of
+    depth D may lie from the plain twins' (f32 products of the same values,
+    TF32 off, within D * 2^-24 of exact by the standard dot-product error
+    bound).
+
+    bf16: the products are exact in f32 on both sides, so only the order of
+    the f32 sums differs: 2 * D * 2^-24.
+
+    float32 (3xTF32): each operand x is split into hi + lo with
+    |x - hi - lo| <= 2^-22 |x|, and lo*lo is dropped, so the three products
+    lie within 3 * 2^-22 |x y| of x*y; the 3D partial products (exact in
+    f32) are summed by the tensor cores, whose additions may truncate
+    (unit error 2^-23), within 3D * 2^-23 of their sum (sum of |x y| <= 1
+    for unit rows). With the twin's D * 2^-24: 3 * 2^-22 + 7 * D * 2^-24.
+    """
+    if dtype == torch.float32:
+        return 3.0 * 2.0**-22 + 7.0 * dim * 2.0**-24
+    return 2.0 * dim * 2.0**-24
+
+
 def _configure(lib: ctypes.CDLL) -> None:
-    fn = lib.bin_topk_carry
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for entry in KERNEL_ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
@@ -164,8 +198,9 @@ def bin_topk_carry(
     """Packed bin-max carry [bins, B] f32 of ``queries @ corpus.T``.
 
     CPU tensors take ``bin_topk_carry_plain``. CUDA tensors launch the
-    kernel, which takes bf16 ``queries`` [B, D] and ``corpus`` [N, D], both
-    contiguous, with N, bins and D multiples of 64; anything else raises.
+    kernel, which takes ``queries`` [B, D] and ``corpus`` [N, D] of one
+    dtype, bf16 or float32, both contiguous, with N and bins multiples of
+    64 and D a multiple of 64 (bf16) or 32 (f32); anything else raises.
     ``bin_topk_carry.launches`` counts calls that launch: each runs the carry
     kernel and, when the super-tiles are split over groups, the max over the
     groups' partial carries.
@@ -174,8 +209,13 @@ def bin_topk_carry(
     steal_bits = steal_bits_for(n, bins)
     if corpus.device.type == "cpu" and queries.device.type == "cpu":
         return bin_topk_carry_plain(queries, corpus, n_valid, bins, steal_bits)
+    dtype = corpus.dtype
+    if dtype not in KERNEL_ENTRIES:
+        raise TypeError(
+            f"bin_topk kernel takes a bf16 or float32 corpus, got {dtype}"
+        )
     check_carry_inputs(
-        "bin_topk", queries, corpus, n_valid, bins, torch.bfloat16, DEPTH_MULTIPLE
+        "bin_topk", queries, corpus, n_valid, bins, dtype, depth_multiple(dtype)
     )
     batch = queries.shape[0]
     lib = load_library("bin_topk")
@@ -183,7 +223,7 @@ def bin_topk_carry(
     out, partial, groups = carry_buffers(corpus, batch, bins)
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream(corpus.device).cuda_stream
-        status = lib.bin_topk_carry(
+        status = getattr(lib, KERNEL_ENTRIES[dtype])(
             queries.data_ptr(),
             corpus.data_ptr(),
             out.data_ptr(),

@@ -14,13 +14,15 @@ Methods (the JAX package's names):
 - ``windowed``: the exact windowed top-k through ``ops.windowed``, the
   hand-written fused scores + window maxima kernel on a CUDA tensor.
 - ``auto``: ``full`` for small corpora (n <= max(4k, 16384), where it is
-  exact and cheap); at scale ``bin_topk`` for a bf16 corpus on CUDA, as the
-  JAX package takes its Pallas kernel on a TPU; else ``full``, which is
-  what the JAX package's off-TPU ``approx`` computes on the CPU.
+  exact and cheap); at scale ``bin_topk`` for a corpus on CUDA, bf16 or
+  float32, as the JAX package takes its Pallas kernel on a TPU whatever
+  the float dtype (ops/dense.py:261-269); else ``full``, which is what
+  the JAX package's off-TPU ``approx`` computes on the CPU.
 
 A float32 corpus never runs in TF32 (ops/__init__.py): float32 products
 keep exact FAISS-flat scores (the JAX package uses HIGHEST precision for
-the same reason, ops/dense.py:58-74). Pad rows are masked before any
+the same reason, ops/dense.py:58-74), and the kernels take it as 3xTF32,
+within about 3 * 2^-22 of f32 per product. Pad rows are masked before any
 selection.
 """
 
@@ -139,7 +141,7 @@ def dense_topk(
     n = corpus.shape[0]
     if method == "auto":
         at_scale = n > max(4 * k, 16384)
-        on_card = corpus.device.type == "cuda" and corpus.dtype == torch.bfloat16
+        on_card = corpus.device.type == "cuda"
         method = "bin_topk" if at_scale and on_card else "full"
 
     if method in ("full", "approx", "chunked"):

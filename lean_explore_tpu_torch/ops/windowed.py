@@ -12,9 +12,10 @@ than k scores exceed x, so fewer than k windows have a maximum above x's
 window, and x's window is among the top k.
 
 On a CUDA tensor ``fused_scores_wmax`` launches the hand-written kernel in
-``csrc/windowed_scores.cu`` (bf16 only: a float32 corpus on the card raises
-``TypeError``); on CPU tensors it runs ``fused_scores_wmax_plain``. There
-is no fallback from one to the other. Unlike the TPU version the query
+``csrc/windowed_scores.cu``: the bf16 product for a bf16 corpus, the
+3xTF32 one for a float32 corpus (the TPU kernel's f32 at HIGHEST
+precision); on CPU tensors it runs ``fused_scores_wmax_plain``. There is
+no fallback from one to the other. Unlike the TPU version the query
 batch is not padded to a multiple of 8.
 """
 
@@ -22,8 +23,11 @@ import ctypes
 
 import torch
 
-from lean_explore_tpu_torch.ops.bin_topk import DEPTH_MULTIPLE, ROW_MULTIPLE
+from lean_explore_tpu_torch.ops.bin_topk import ROW_MULTIPLE, depth_multiple
 from lean_explore_tpu_torch.ops.cuda_build import load_library
+
+# The corpus dtypes the kernel takes, with the entry point of each.
+KERNEL_ENTRIES = {torch.bfloat16: "windowed_scores", torch.float32: "windowed_scores_f32"}
 
 
 def fused_scores_wmax_plain(
@@ -31,7 +35,7 @@ def fused_scores_wmax_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(scores_t [N, B], wmax_t [N / window, B]) f32 in torch ops: the
     kernel's plain twin. Queries are cast to the corpus dtype, then products
-    taken in f32 (bf16 values are exact in f32)."""
+    taken in f32 (bf16 values are exact in f32; TF32 is off)."""
     n = corpus.shape[0]
     if n % window:
         raise ValueError(f"corpus rows {n} not a multiple of window {window}")
@@ -44,9 +48,10 @@ def fused_scores_wmax_plain(
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    fn = lib.windowed_scores
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for entry in KERNEL_ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def fused_scores_wmax(
@@ -55,10 +60,11 @@ def fused_scores_wmax(
     """Masked transposed scores [N, B] and window maxima [N / window, B].
 
     CPU tensors take ``fused_scores_wmax_plain``. CUDA tensors launch the
-    kernel, which takes a bf16 corpus [N, D] (queries are cast to bf16),
-    contiguous, with N and D multiples of 64 and 64 % window == 0 (the
-    tiles of bin_topk, csrc/mma_tiles.cuh: a window lies inside one 64-row
-    tile); anything else raises. ``fused_scores_wmax.launches`` counts
+    kernel, which takes a bf16 or float32 corpus [N, D] (queries are cast
+    to its dtype), contiguous, with N a multiple of 64, D a multiple of 64
+    (bf16) or 32 (f32) and 64 % window == 0 (the tiles of bin_topk,
+    csrc/mma_tiles.cuh: a window lies inside one 64-row tile); anything
+    else raises. ``fused_scores_wmax.launches`` counts
     launches.
     """
     if corpus.device.type == "cpu" and queries.device.type == "cpu":
@@ -69,20 +75,20 @@ def fused_scores_wmax(
             f"fused_scores_wmax: queries on {queries.device}, corpus on "
             f"{corpus.device}; both must be on one CUDA device"
         )
-    if corpus.dtype != torch.bfloat16:
+    dtype = corpus.dtype
+    if dtype not in KERNEL_ENTRIES:
         raise TypeError(
-            f"the windowed_scores kernel takes a bf16 corpus, got {corpus.dtype}; "
-            "a float32 corpus has no kernel on the card yet"
+            f"the windowed_scores kernel takes a bf16 or float32 corpus, got {dtype}"
         )
-    q = queries.to(torch.bfloat16).contiguous()
+    q = queries.to(dtype).contiguous()
     if q.ndim != 2 or q.shape[1] != dim or q.shape[0] == 0:
         raise ValueError(f"queries {tuple(queries.shape)} vs corpus {(n, dim)}")
     if not corpus.is_contiguous() or corpus.data_ptr() % 16:
         raise ValueError("windowed_scores kernel needs a contiguous aligned corpus")
-    if n % ROW_MULTIPLE or dim % DEPTH_MULTIPLE or ROW_MULTIPLE % window:
+    if n % ROW_MULTIPLE or dim % depth_multiple(dtype) or ROW_MULTIPLE % window:
         raise ValueError(
             f"windowed_scores kernel needs rows ({n}) a multiple of "
-            f"{ROW_MULTIPLE}, depth ({dim}) a multiple of {DEPTH_MULTIPLE} and "
+            f"{ROW_MULTIPLE}, depth ({dim}) a multiple of {depth_multiple(dtype)} and "
             f"a window ({window}) dividing {ROW_MULTIPLE}"
         )
     if not 0 <= n_valid <= n:
@@ -94,7 +100,7 @@ def fused_scores_wmax(
     wmax_t = torch.empty(n // window, batch, dtype=torch.float32, device=corpus.device)
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream(corpus.device).cuda_stream
-        status = lib.windowed_scores(
+        status = getattr(lib, KERNEL_ENTRIES[dtype])(
             q.data_ptr(),
             corpus.data_ptr(),
             scores_t.data_ptr(),

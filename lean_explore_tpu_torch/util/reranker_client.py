@@ -5,7 +5,9 @@ Same ``<Instruct>/<Query>/<Document>`` pair format and last-token
 true/false softmax as the JAX client. The serving path is
 ``rerank_grouped``: each query's pairs share one prefix forward whose
 per-layer K/V the document suffixes attend to. The two-stage cascade
-(LEAN_EXPLORE_RERANK_CASCADE) is a later slice and raises here.
+(LEAN_EXPLORE_RERANK_CASCADE) and the W8A8 int8 trunk
+(LEAN_EXPLORE_RERANKER_INT8=1, ``dtype="int8"``) are later slices and
+raise here.
 """
 
 import asyncio
@@ -39,6 +41,32 @@ SUFFIX_BUCKETS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 # Query groups per grouped forward step (bounds the score tensor).
 GROUP_CHUNK = 16
 
+_PARAM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _int8_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "int8 reranker (LEAN_EXPLORE_RERANKER_INT8=1 or dtype='int8'): the "
+        "W8A8 trunk (qwen3.quantize_params_int8) is not ported yet; unset the "
+        "variable or pass dtype=torch.bfloat16 to serve the bf16 reranker"
+    )
+
+
+def resolve_param_dtype(dtype: str | torch.dtype | None) -> torch.dtype:
+    """The trunk's parameter dtype, chosen as the JAX client chooses it
+    (lean_explore_tpu/util/reranker_client.py:113-119): None means bf16,
+    or int8 when LEAN_EXPLORE_RERANKER_INT8=1. Int8, chosen either way,
+    raises NotImplementedError."""
+    if dtype is None:
+        dtype = "int8" if os.getenv("LEAN_EXPLORE_RERANKER_INT8") == "1" else "bfloat16"
+    if dtype in ("int8", torch.int8):
+        raise _int8_not_ported()
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if dtype not in _PARAM_DTYPES:
+        raise ValueError(f"reranker dtype {dtype!r} (have {sorted(_PARAM_DTYPES)}, int8)")
+    return _PARAM_DTYPES[dtype]
+
 
 def format_pair(query: str, document: str, instruction: str = DEFAULT_INSTRUCTION) -> str:
     """The pair template the reranker scores."""
@@ -61,7 +89,7 @@ class RerankerClient:
         max_length: int = 512,
         instruction: str = DEFAULT_INSTRUCTION,
         batch_size: int | None = None,
-        dtype: torch.dtype = torch.bfloat16,
+        dtype: str | torch.dtype | None = None,
         device: str | torch.device | None = None,
     ):
         """Load tokenizer + params onto ``device`` (default CUDA).
@@ -73,8 +101,12 @@ class RerankerClient:
             instruction: Task instruction in the pair template.
             batch_size: Falls back to LEAN_EXPLORE_RERANKER_BATCH_SIZE,
                 then 64.
-            dtype: Parameter dtype (bf16 serving, f32 parity).
+            dtype: Parameter dtype (bf16 serving, f32 parity); None is bf16
+                unless LEAN_EXPLORE_RERANKER_INT8=1 (``resolve_param_dtype``).
+                Int8 raises NotImplementedError: the W8A8 trunk is not
+                ported yet.
         """
+        dtype = resolve_param_dtype(dtype)
         resolved = Path(model_dir) if model_dir else resolve_model_dir(model_name)
         if batch_size is not None and batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
@@ -110,9 +142,14 @@ class RerankerClient:
         max_length: int = 512,
         instruction: str = DEFAULT_INSTRUCTION,
         batch_size: int = 64,
+        int8: bool = False,
     ) -> "RerankerClient":
         """A client around already-loaded params (on their device), config
-        and tokenizer: random-weight benchmarks and tests."""
+        and tokenizer: random-weight benchmarks and tests. ``int8=True``
+        (params already quantized, in the JAX signature) raises
+        NotImplementedError: the W8A8 trunk is not ported yet."""
+        if int8:
+            raise _int8_not_ported()
         self = object.__new__(cls)
         self._init(
             params, config, tokenizer, model_name=model_name,

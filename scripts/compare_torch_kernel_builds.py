@@ -1,0 +1,165 @@
+"""Do the port's bf16 retrieval kernels give the same bits as another
+tree's build of them? On one GPU.
+
+    python3 scripts/compare_torch_kernel_builds.py --other unpacked/parent
+
+Builds ``csrc/bin_topk.cu`` and ``csrc/windowed_scores.cu`` of this tree and
+of the tree at ``--other`` (for example the parent commit, unpacked with
+``git archive`` into a directory that .gitignore lists) with the port's nvcc
+flags, each into its own directory under ``build/compare_builds/``, loads
+both with ctypes and calls their bf16 entry points (``bin_topk_carry``,
+``windowed_scores``, whose C interface is the same in both) on the same
+inputs: the serving shape (300,000 valid rows of a 300,032 x 1024 unit-row
+corpus, B = 128, bins = 4096, window 8) and two small shapes. It prints,
+per kernel and shape, whether the outputs are equal bit for bit, then the
+registers ``ptxas -v`` reports for each build, and exits 1 if any output
+differs. Needs a CUDA device and nvcc; exits 2 without a device.
+"""
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+KERNELS = ("bin_topk", "windowed_scores")
+# (n_rows, n_valid, dim, batch, bins, window)
+SHAPES = (
+    (300_032, 300_000, 1024, 128, 4096, 8),
+    (8192 + 4096, 8192 + 4000, 256, 37, 4096, 8),
+    (64 * 9, 64 * 9, 128, 200, 64, 16),
+)
+
+
+def build(csrc: Path, out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """{kernel: (library, ptxas register lines)} built from ``csrc``."""
+    sys.path.insert(0, str(REPO))
+    from lean_explore_tpu_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in KERNELS:
+        lib = out_dir / f"lib{name}.so"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(csrc / f"{name}.cu")]
+        procs[name] = (lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    built = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {csrc / name}.cu:\n{log}")
+        regs = "; ".join(
+            line.strip() for line in log.splitlines() if "registers" in line
+        )
+        built[name] = (ctypes.CDLL(str(lib)), regs)
+    return built
+
+
+def _configure(kernel: str, lib: ctypes.CDLL) -> None:
+    if kernel == "bin_topk":
+        fn = lib.bin_topk_carry
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    else:
+        fn = lib.windowed_scores
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def run_bin_topk(lib, q, corpus, n_valid, bins) -> torch.Tensor:
+    from lean_explore_tpu_torch.ops.bin_topk import (
+        carry_buffers,
+        steal_bits_for,
+    )
+
+    n, dim = corpus.shape
+    out, partial, groups = carry_buffers(corpus, q.shape[0], bins)
+    stream = torch.cuda.current_stream().cuda_stream
+    status = lib.bin_topk_carry(
+        q.data_ptr(), corpus.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None, q.shape[0], n, dim,
+        n_valid, bins, steal_bits_for(n, bins), groups, stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"bin_topk_carry: cudaError {status}")
+    return out
+
+
+def run_windowed(lib, q, corpus, n_valid, window) -> torch.Tensor:
+    n, dim = corpus.shape
+    batch = q.shape[0]
+    scores = torch.empty(n, batch, device=corpus.device)
+    wmax = torch.empty(n // window, batch, device=corpus.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    status = lib.windowed_scores(
+        q.data_ptr(), corpus.data_ptr(), scores.data_ptr(), wmax.data_ptr(), batch,
+        n, dim, n_valid, window, stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"windowed_scores: cudaError {status}")
+    return torch.cat([scores.flatten(), wmax.flatten()])
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--other", required=True, help="root of the other tree")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_torch_kernel_builds: needs a CUDA device", file=sys.stderr)
+        return 2
+    other = Path(args.other).resolve()
+    builds = {
+        "this": build(REPO / "lean_explore_tpu_torch" / "csrc",
+                      REPO / "build" / "compare_builds" / "this"),
+        "other": build(other / "lean_explore_tpu_torch" / "csrc",
+                       REPO / "build" / "compare_builds" / "other"),
+    }
+    for libs in builds.values():
+        for kernel, (lib, _) in libs.items():
+            _configure(kernel, lib)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    results, ok = [], True
+    for n, n_valid, dim, batch, bins, window in SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n + batch)
+        corpus = torch.randn(n, dim, generator=gen, device="cuda")
+        corpus = (corpus / corpus.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        corpus[n_valid:] = 0
+        q = torch.randn(batch, dim, generator=gen, device="cuda")
+        q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        for kernel in KERNELS:
+            outs = {}
+            for tag, libs in builds.items():
+                lib = libs[kernel][0]
+                if kernel == "bin_topk":
+                    outs[tag] = run_bin_topk(lib, q, corpus, n_valid, bins)
+                else:
+                    outs[tag] = run_windowed(lib, q, corpus, n_valid, window)
+            torch.cuda.synchronize()
+            same = torch.equal(
+                outs["this"].view(torch.int32), outs["other"].view(torch.int32)
+            )
+            ok &= same
+            results.append({
+                "kernel": kernel, "rows": n, "n_valid": n_valid, "dim": dim,
+                "batch": batch, "bins": bins, "window": window,
+                "bit_identical": same,
+            })
+            print(json.dumps(results[-1]), flush=True)
+    for tag, libs in builds.items():
+        for kernel, (_, regs) in libs.items():
+            print(f"{tag} {kernel}: {regs}", flush=True)
+    print(json.dumps({"bit_identical": ok, "card": card}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -125,3 +125,85 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert torch.equal(packed, want)
     assert packed.shape == (256, 3)
 
+
+
+# ----------------------------------------------------------------------
+# A float32 corpus: the kernel takes it as 3xTF32 at 32 values per stage
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "case,dim", [("planted", 32), ("single query", 96), ("partial super-tile", 32),
+                 ("padding", 96)],
+)
+def test_f32_corpus_at_the_f32_stage_depth(case, dim):
+    """The four cases of the card's check at depths the f32 kernel takes
+    (multiples of 32) and the bf16 one does not: the f32 plain carry vs the
+    JAX kernel on the same f32 corpus, at HIGHEST precision."""
+    n, b, k, bins = 2560, 4, 24, 1024
+    corpus = random_unit_rows(n, dim, seed=dim + 1)
+    queries = random_unit_rows(b, dim, seed=dim + 2)
+    n_valid = n
+    if case == "planted":
+        corpus[2300] = queries[0]
+    if case == "single query":
+        queries = queries[:1]
+    if case == "partial super-tile":
+        n_valid = 2100
+    if case == "padding":
+        corpus[:n_valid] = -np.abs(corpus[:n_valid])
+        queries = np.abs(queries)
+        corpus[2000:] = 0.0
+        n_valid = 2000
+    scores, idx = _both(corpus, queries, n_valid, k, bins=bins, tile_rows=512)
+    assert idx.max() < n_valid
+    if case == "planted":
+        assert idx[0, 0] == 2300
+    if case == "padding":
+        assert np.all(scores < 0)
+    assert K.depth_multiple(torch.float32) == 32 and dim % 32 == 0
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: cvt.rna.tf32.f32."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_3xtf32_products_within_the_split_bound():
+    """The f32 kernel's product, emulated exactly: hi = tf32(x),
+    lo = tf32(x - hi), x*y taken as lo*hi + hi*lo + hi*hi (lo*lo dropped).
+    Summed in f64, every inner product of unit rows lies within
+    3 * 2^-22 * sum|x y| of the exact one: the split term of the f32
+    tolerance that ops.bin_topk.score_tolerance derives."""
+    x = random_unit_rows(64, 1024, seed=21)
+    y = random_unit_rows(32, 1024, seed=22)
+    x[0] = y[0]  # a self match
+
+    def split(a):
+        hi = _tf32_rna(a)
+        return hi.astype(np.float64), _tf32_rna(a - hi).astype(np.float64)
+
+    xh, xl = split(x)
+    yh, yl = split(y)
+    approx = xl @ yh.T + xh @ yl.T + xh @ yh.T
+    exact = x.astype(np.float64) @ y.astype(np.float64).T
+    bound = 3 * 2.0**-22 * (np.abs(x).astype(np.float64) @ np.abs(y).astype(np.float64).T)
+    assert np.all(np.abs(approx - exact) <= bound)
+    assert np.abs(approx - exact).max() > 0  # the split is not exact
+    # Summed in f32 (as the tensor cores sum, in another order), within the
+    # whole f32 tolerance of the exact products.
+    f32_sum = sum(
+        (a.astype(np.float32) @ b.astype(np.float32).T).astype(np.float64)
+        for a, b in ((xl, yh), (xh, yl), (xh, yh))
+    )
+    assert np.abs(f32_sum - exact).max() <= K.score_tolerance(torch.float32, 1024)
+    assert K.score_tolerance(torch.bfloat16, 1024) == 2 * 1024 * 2.0**-24
+
+
+def test_kernel_entries_and_stage_depths():
+    assert set(K.KERNEL_ENTRIES) == {torch.bfloat16, torch.float32}
+    assert K.depth_multiple(torch.bfloat16) == 64
+    assert K.depth_multiple(torch.float32) == 32
+    assert K.depth_multiple(torch.int8) == 128

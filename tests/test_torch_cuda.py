@@ -12,6 +12,11 @@ of unit rows of depth D (2 * D * 2^-24), plus, for the packed carry, two
 packing quanta (2^steal_bits ulps of [2, 4), 2^-22 each) (derivation in
 chip_smoke.py). The int8 kernel's products are exact integers and its f32
 steps are rounded as its twin's, so its carry equals the twin's bit for bit.
+The float32 kernels (3xTF32) are held to 3 * 2^-22 + 7 * D * 2^-24 (the
+split's error and truncating tensor-core sums; ops.bin_topk.score_tolerance),
+and flash attention on valid rows to ops.flash_attention.kernel_tolerance:
+2^-7 * (max|v| + max|out|) in bf16 (where the two round the probabilities
+to bf16, and the bf16 output), the 3xTF32 bound in float32.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ import torch
 
 from lean_explore_tpu_torch.ops import bin_topk as K
 from lean_explore_tpu_torch.ops import bin_topk_int8 as K8
+from lean_explore_tpu_torch.ops import flash_attention as FA
 from lean_explore_tpu_torch.ops import windowed as W
 from lean_explore_tpu_torch.ops.quant import quantize_rows_device
 
@@ -33,9 +39,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _unit_rows(n, d, gen, device):
+def _unit_rows(n, d, gen, device, dtype=torch.bfloat16):
     x = torch.randn(n, d, generator=gen, device=device)
-    return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype)
 
 
 @pytest.mark.parametrize(
@@ -68,6 +74,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(2, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(TypeError):
         K.bin_topk_carry(q.float(), corpus, 512, 256)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        K.bin_topk_carry(q.half(), corpus.half(), 512, 256)
     with pytest.raises(ValueError, match="multiples"):
         K.bin_topk_carry(q, corpus[:500], 500, 256)
     with pytest.raises(ValueError, match="contiguous"):
@@ -175,7 +183,9 @@ def test_windowed_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     corpus = torch.zeros(512, 64, dtype=torch.bfloat16, device=cuda)
     q = torch.zeros(2, 64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
-        W.fused_scores_wmax(q, corpus.float(), 512)
+        W.fused_scores_wmax(q, corpus.half(), 512)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        W.fused_scores_wmax(q[:, :48], corpus[:, :48].float().contiguous(), 512)
     with pytest.raises(ValueError, match="window"):
         W.fused_scores_wmax(q, corpus, 512, window=24)
     with pytest.raises(ValueError, match="CUDA device"):
@@ -192,3 +202,140 @@ def test_dense_index_windowed_search_takes_the_kernel(cuda):
     _, ids = index.search(corpus[:5].float(), 10, method="windowed")
     assert W.fused_scores_wmax.launches == before + 1
     assert ids[:, 0].tolist() == [0, 1, 2, 3, 4]
+
+
+@pytest.mark.parametrize(
+    "n,n_valid,batch,bins,dim",
+    [
+        (8192 + 4096, 8192 + 4000, 37, 4096, 256),  # ragged batch, partial super-tile
+        (4096 * 5, 4096 * 5, 1, 4096, 96),  # one query, a depth of 3 f32 stages
+        (2048, 1500, 128, 1024, 256),  # fewer super-tiles than groups
+        (64 * 9, 64 * 9, 200, 64, 32),  # two query blocks and a partial one
+    ],
+)
+def test_f32_carry_matches_plain(cuda, n, n_valid, batch, bins, dim):
+    gen = torch.Generator(device=cuda).manual_seed(n + batch + 3)
+    corpus = _unit_rows(n, dim, gen, cuda, torch.float32)
+    queries = _unit_rows(batch, dim, gen, cuda, torch.float32)
+    steal = K.steal_bits_for(n, bins)
+    before = K.bin_topk_carry.launches
+    got = K.bin_topk_carry(queries, corpus, n_valid, bins)
+    assert K.bin_topk_carry.launches == before + 1
+    want = K.bin_topk_carry_plain(queries, corpus, n_valid, bins, steal)
+    torch.cuda.synchronize()
+    tol = 2.0 * 2.0 ** (steal - 22) + K.score_tolerance(torch.float32, dim)
+    assert got.shape == (bins, batch)
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize(
+    "n,n_valid,batch,window,dim",
+    [(4096, 4000, 37, 8, 256), (640, 640, 1, 16, 96), (64 * 9, 500, 200, 64, 32)],
+)
+def test_f32_windowed_scores_match_plain(cuda, n, n_valid, batch, window, dim):
+    gen = torch.Generator(device=cuda).manual_seed(n + batch + 4)
+    corpus = _unit_rows(n, dim, gen, cuda, torch.float32)
+    queries = _unit_rows(batch, dim, gen, cuda, torch.float32)
+    before = W.fused_scores_wmax.launches
+    got_s, got_w = W.fused_scores_wmax(queries, corpus, n_valid, window)
+    assert W.fused_scores_wmax.launches == before + 1
+    want_s, want_w = W.fused_scores_wmax_plain(queries, corpus, n_valid, window)
+    torch.cuda.synchronize()
+    for got, want in ((got_s, want_s), (got_w, want_w)):
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        finite = torch.isfinite(want)
+        assert float((got[finite] - want[finite]).abs().max()) <= K.score_tolerance(torch.float32, dim)
+
+
+def test_f32_dense_index_search_takes_the_kernel(cuda):
+    from lean_explore_tpu_torch.index.dense import DenseIndex
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    corpus = _unit_rows(20_000, 128, gen, cuda, torch.float32)
+    index = DenseIndex(corpus, np.arange(20_000), normalized=True)
+    before = K.bin_topk_carry.launches
+    before_w = W.fused_scores_wmax.launches
+    _, ids = index.search(corpus[:5], 10)
+    _, ids_w = index.search(corpus[:5], 10, method="windowed")
+    assert K.bin_topk_carry.launches == before + 1
+    assert W.fused_scores_wmax.launches == before_w + 1
+    assert ids[:, 0].tolist() == [0, 1, 2, 3, 4] == ids_w[:, 0].tolist()
+
+
+def _flash_inputs(cuda, b, t, nq, nkv, dh, lengths, seed, dtype=torch.bfloat16):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def draw(heads):
+        return torch.randn(b, t, heads, dh, generator=gen, device=cuda).to(dtype)
+
+    lens = torch.tensor(lengths, device=cuda)
+    mask = (torch.arange(t, device=cuda)[None, :] < lens[:, None]).to(torch.int32)
+    return draw(nq), draw(nkv), draw(nkv), mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,t,nq,nkv,dh,lengths",
+    [
+        (5, 256, 4, 2, 128, [1, 63, 64, 65, 256]),
+        (3, 128, 4, 4, 64, [128, 100, 1]),
+        (2, 512, 16, 8, 128, [512, 257]),
+    ],
+)
+def test_flash_attention_matches_plain(cuda, b, t, nq, nkv, dh, lengths, dtype):
+    q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, lengths, seed=t + dh, dtype=dtype)
+    before = FA.attention_flash.launches
+    got = FA.attention_flash(q, k, v, mask, dh**-0.5)
+    assert FA.attention_flash.launches == before + 1
+    want = FA.attention_flash_plain(q, k, v, mask, dh**-0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (b, t, nq * dh) and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    valid = mask.bool()
+    got_v, want_v = got[valid].float(), want[valid].float()
+    assert float((got_v - want_v).abs().max()) <= FA.kernel_tolerance(q, k, v, want_v)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, mask = _flash_inputs(cuda, 1, 128, 4, 2, 64, [128], seed=1)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        FA.attention_flash(q.half(), k.half(), v.half(), mask, 0.125)
+    with pytest.raises(TypeError, match="one dtype"):
+        FA.attention_flash(q.float(), k, v, mask, 0.125)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        FA.attention_flash(q[:, :96], k[:, :96], v[:, :96], mask[:, :96], 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.attention_flash(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                           v[..., :32].contiguous(), mask, 0.125)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        FA.attention_flash(q, k, v, mask.cpu(), 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_hidden_takes_flash_once_per_layer(cuda, monkeypatch, dtype):
+    """With LEAN_EXPLORE_FLASH_ATTENTION=1 a forward at T = 256 on the card
+    (bf16, or the f32 parity trunk) launches the kernel once per layer, and
+    its valid rows stay close to the einsum path's (cosine >= 0.999 per
+    row)."""
+    from lean_explore_tpu_torch.models import qwen3
+
+    config = qwen3.Qwen3Config(
+        vocab_size=64, hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, head_dim=64, intermediate_size=512,
+    )
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    params = qwen3.init_params(config, gen, dtype=dtype, device=cuda)
+    ids = torch.randint(3, 64, (3, 256), generator=gen, device=cuda)
+    mask = torch.ones(3, 256, dtype=torch.int32, device=cuda)
+    mask[1, 90:] = 0
+    monkeypatch.setenv("LEAN_EXPLORE_FLASH_ATTENTION", "1")
+    before = FA.attention_flash.launches
+    flash = qwen3.forward_hidden(params, config, ids, mask)
+    assert FA.attention_flash.launches == before + 2
+    einsum = qwen3.forward_hidden(params, config, ids, mask, flash=False)
+    assert FA.attention_flash.launches == before + 2
+    valid = mask.bool()
+    cos = torch.nn.functional.cosine_similarity(
+        flash[valid].float(), einsum[valid].float(), dim=-1
+    )
+    assert float(cos.min()) >= 0.999

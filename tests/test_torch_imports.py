@@ -4,8 +4,10 @@ packages the card's machine lacks.
 A fresh interpreter imports the port, runs CPU searches through
 ``Service.search_batch`` (tiny random weights, a WordLevel tokenizer, a
 BM25 + dense artifact set built in memory; a float32 and then an int8
-dense index) and a windowed dense search, and then reports which of the
-forbidden modules are in ``sys.modules``.
+dense index), a windowed dense search and a trunk forward on flash
+attention (``forward_hidden(flash=True)`` at T = 256, the kernel's plain
+twin on the CPU), and then reports which of the forbidden modules are in
+``sys.modules``.
 """
 
 import json
@@ -85,6 +87,11 @@ rows = np.random.default_rng(2).standard_normal((300, 32))
 windowed = DenseIndex.build(rows, np.arange(300), device="cpu")
 _, got = windowed.search(rows[:3], 4, method="windowed")
 assert got[:, 0].tolist() == [0, 1, 2], got
+flash_ids = torch.randint(3, len(vocab), (2, 256), generator=gen)
+flash_mask = torch.ones(2, 256, dtype=torch.int32)
+flash_mask[0, 100:] = 0
+hidden = qwen3.forward_hidden(embedder.params, config, flash_ids, flash_mask, flash=True)
+assert hidden.shape == (2, 256, 32) and bool(torch.isfinite(hidden).all())
 print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
 """
 

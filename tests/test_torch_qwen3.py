@@ -198,3 +198,130 @@ def test_committed_checkpoint(model):
         kw = dict(token_true=10357, token_false=2503)  # "true", "false"
         got, want = _grouped_both(jparams, jconfig, tparams, tconfig, inputs, kw)
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# Flash attention through the trunk (LEAN_EXPLORE_FLASH_ATTENTION)
+# ----------------------------------------------------------------------
+
+FLASH_T = 256
+
+
+def _flash_inputs(vocab: int):
+    """Two rows at the flash threshold T = 256: one right-padded to 150
+    valid tokens, one full."""
+    rng = np.random.default_rng(11)
+    ids = rng.integers(3, vocab, size=(2, FLASH_T)).astype(np.int32)
+    mask = np.ones((2, FLASH_T), dtype=np.int32)
+    mask[0, 150:] = 0
+    return ids, mask
+
+
+@pytest.fixture(scope="module")
+def jax_flash_hidden(tiny):
+    """The JAX trunk's forward_hidden(flash=True), its Pallas TPU flash
+    kernel run in interpret mode on the CPU."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    _, jparams, jconfig = tiny[:3]
+    ids, mask = _flash_inputs(jconfig.vocab_size)
+    with pltpu.force_tpu_interpret_mode():
+        hidden = jq.forward_hidden(jparams, jconfig, ids, mask, flash=True)
+    return ids, mask, np.asarray(hidden)
+
+
+def test_forward_hidden_flash_matches_jax(tiny, jax_flash_hidden):
+    """f32 trunk, both sides on flash attention: hidden states within the
+    trunk tolerance 2e-4 on valid rows."""
+    _, _, _, tparams, tconfig = tiny
+    ids, mask, want = jax_flash_hidden
+    before = tq.flash_ops.attention_flash.launches
+    got = tq.forward_hidden(tparams, tconfig, _t(ids), _t(mask), flash=True).numpy()
+    assert tq.flash_ops.attention_flash.launches == before  # CPU: the twin
+    valid = mask.astype(bool)
+    np.testing.assert_allclose(got[valid], want[valid], atol=2e-4, rtol=2e-4)
+    # Flash and the einsum attention agree on valid rows inside the port.
+    einsum = tq.forward_hidden(tparams, tconfig, _t(ids), _t(mask), flash=False).numpy()
+    np.testing.assert_allclose(got[valid], einsum[valid], atol=2e-4, rtol=2e-4)
+
+
+def test_embed_pool_flash_matches_jax(tiny, jax_flash_hidden, monkeypatch):
+    """embed_pool and embed_pool_from_ids reach flash through
+    forward_hidden's deferral to _use_flash (forced on here: on the CPU it
+    is off): unit-norm embeddings of the JAX flash forward's last valid
+    rows within 2e-4."""
+    _, _, _, tparams, tconfig = tiny
+    ids, mask, hidden = jax_flash_hidden
+    last = mask.shape[1] - 1 - np.argmax(mask[:, ::-1], axis=1)
+    pooled = hidden[np.arange(len(ids)), last]
+    want = pooled / np.linalg.norm(pooled, axis=1, keepdims=True)
+    calls = []
+    monkeypatch.setattr(
+        tq, "_use_flash", lambda seq_len, device: calls.append(seq_len) or True
+    )
+    got = tq.embed_pool(tparams, tconfig, _t(ids), _t(mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+    lengths = torch.from_numpy(mask.sum(axis=1).astype(np.int32))
+    got = tq.embed_pool_from_ids(tparams, tconfig, _t(ids), lengths).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+    assert calls == [FLASH_T, FLASH_T]
+
+
+def test_rerank_scores_and_logits_with_flash(tiny, monkeypatch):
+    """rerank_scores and last_token_logits on flash (forced on) against the
+    JAX trunk's einsum forward: f32, reranker probabilities within 1e-5,
+    logits within 2e-4."""
+    _, jparams, jconfig, tparams, tconfig = tiny
+    ids, mask = _flash_inputs(jconfig.vocab_size)
+    kw = dict(token_true=3, token_false=4)
+    want = np.asarray(jq.rerank_scores(jparams, jconfig, ids, mask, **kw))
+    want_logits = np.asarray(jq.last_token_logits(jparams, jconfig, ids, mask))
+    monkeypatch.setattr(tq, "_use_flash", lambda seq_len, device: True)
+    got = tq.rerank_scores(tparams, tconfig, _t(ids), _t(mask), **kw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    logits = tq.last_token_logits(tparams, tconfig, _t(ids), _t(mask)).numpy()
+    np.testing.assert_allclose(logits, want_logits, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("mask_kind", ["full", "right", "left"])
+def test_last_token_logits(tiny, mask_kind):
+    """The head on the last valid position only, [B, V] f32, against the
+    JAX trunk: logits within 2e-4."""
+    _, jparams, jconfig, tparams, tconfig = tiny
+    ids, masks = _masks(jconfig.vocab_size)
+    mask = masks[mask_kind]
+    want = np.asarray(jq.last_token_logits(jparams, jconfig, ids, mask))
+    got = tq.last_token_logits(tparams, tconfig, _t(ids), _t(mask))
+    assert got.dtype == torch.float32 and got.shape == (3, jconfig.vocab_size)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize(
+    "env,seq,device,want",
+    [
+        (None, 512, "cuda", False),  # opt-in only
+        ("1", 512, "cpu", False),  # a CUDA device only
+        ("1", 256, "cuda", True),
+        ("1", 512, "cuda", True),
+        ("1", 384, "cuda", True),
+        ("1", 128, "cuda", False),  # below FLASH_MIN_SEQ
+        ("1", 320, "cuda", False),  # not a multiple of 128
+    ],
+)
+def test_use_flash(monkeypatch, env, seq, device, want):
+    if env is None:
+        monkeypatch.delenv("LEAN_EXPLORE_FLASH_ATTENTION", raising=False)
+    else:
+        monkeypatch.setenv("LEAN_EXPLORE_FLASH_ATTENTION", env)
+    assert tq._use_flash(seq, torch.device(device)) is want
+
+
+def test_flash_variable_is_read_per_call_and_off_on_the_cpu(tiny, monkeypatch):
+    """With the variable set, a CPU forward still takes the einsum path
+    (_use_flash is False off CUDA), so it equals flash=False exactly."""
+    _, _, jconfig, tparams, tconfig = tiny
+    ids, mask = _flash_inputs(jconfig.vocab_size)
+    monkeypatch.setenv("LEAN_EXPLORE_FLASH_ATTENTION", "1")
+    got = tq.forward_hidden(tparams, tconfig, _t(ids), _t(mask))
+    want = tq.forward_hidden(tparams, tconfig, _t(ids), _t(mask), flash=False)
+    assert torch.equal(got, want)

@@ -118,3 +118,35 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert W.fused_scores_wmax.launches == before
     want = W.fused_scores_wmax_plain(queries, corpus, 500, 8)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n,n_valid,b,k,window", [(512, 500, 3, 16, 8), (1024, 1024, 1, 10, 16)])
+def test_f32_corpus_at_the_f32_stage_depth(n, n_valid, b, k, window):
+    """Depth 96: a multiple of the f32 kernel's 32 values per stage and not
+    of the bf16 kernel's 64. The f32 plain scores and the windowed top-k vs
+    the JAX kernels (interpret mode, HIGHEST precision) on the same f32
+    corpus, within 1e-6."""
+    dim = 96
+    corpus = random_unit_rows(n, dim, seed=n + 3)
+    queries = random_unit_rows(b, dim, seed=n + 4)
+    want_s, want_w = jax_fused_scores_wmax(
+        jnp.asarray(queries), jnp.asarray(corpus), jnp.int32(n_valid),
+        window=window, tile_rows=256, interpret=True,
+    )
+    got_s, got_w = W.fused_scores_wmax(
+        torch.from_numpy(queries), torch.from_numpy(corpus), n_valid, window
+    )
+    for got, want in ((got_s, want_s), (got_w, want_w)):
+        want = np.asarray(want)[:, :b]
+        np.testing.assert_array_equal(np.isneginf(got.numpy()), np.isneginf(want))
+        finite = np.isfinite(want)
+        np.testing.assert_allclose(got.numpy()[finite], want[finite], atol=1e-6, rtol=0)
+    want = pallas_windowed_topk(
+        jnp.asarray(queries), jnp.asarray(corpus), jnp.int32(n_valid), k=k,
+        window=window, tile_rows=256, interpret=True,
+    )
+    got = W.windowed_topk(
+        torch.from_numpy(queries), torch.from_numpy(corpus), n_valid, k=k, window=window
+    )
+    _assert_topk(got, want, 1e-6)
+    assert W.KERNEL_ENTRIES[torch.float32] == "windowed_scores_f32"
