@@ -12,7 +12,9 @@ Phases, each announced before it starts and timed after it ends:
    and one PyTorch library call for the same function: bin_topk over a
    bf16 and a float32 corpus, bin_topk_int8, windowed_scores over a bf16
    and a float32 corpus, and flash_attention over bf16 and float32 inputs
-   at the Qwen3-0.6B serving geometry;
+   at the Qwen3-0.6B serving geometry; then K5's backward kernels (dq and
+   dk/dv, float32 and bf16) and its forward's lse at the training shape
+   (B 32 x T 256; bf16 also at B 64 x T 512), timed beside SDPA's backward;
 4. drive ``Service.search_batch`` of the port at full width: a 300,000-row
    synthetic store, a 300,000 x 1024 bf16 dense index on the card, and two
    clients of the Qwen3-0.6B geometry with random bf16 weights from a seed,
@@ -28,8 +30,18 @@ Phases, each announced before it starts and timed after it ends:
    ``embed_sync`` of 64 long documents on a float32 copy of the embedder;
    4e. ``DenseIndex.search`` over the phase-4 corpus held in float32 on
    the card, with the default method and the windowed one.
-   Every kernel's launch count is set to 0 just before each of these
-   paths is driven and read just after it.
+5. drive training at the Qwen3-0.6B geometry with
+   LEAN_EXPLORE_FLASH_ATTENTION=1: a random f32 checkpoint written by the
+   port's ``export_hf_checkpoint`` and a 2,000-declaration store of
+   200-249-word informalizations; 5b the contrastive CLI
+   ``lean_explore_tpu_torch.train.__main__.main`` at its defaults (batch
+   32, queries 64, documents 256 tokens, AdamW lr 1e-5) to step 4 with a
+   checkpoint every 2 steps, then again to step 6, resuming from step 4;
+   5c one batch's loss and gradients with flash and without; 5d two
+   cross-encoder steps in bf16 at max_length 256. Every step launches K5's
+   forward, dq and dk/dv once per layer each, and no other kernel.
+Every kernel's launch count is set to 0 just before each path of phases 4
+and 5 is driven and read just after it.
 
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure raises, so the run exits non-zero with its
@@ -644,6 +656,154 @@ def check_flash_attention(device, dtype=torch.bfloat16) -> dict:
     }
 
 
+# ----------------------------------------------------------------------
+# Phase 3: K5's backward (dq, dk/dv) against its plain version
+# ----------------------------------------------------------------------
+
+TRAIN_B, TRAIN_T = 32, 256
+
+
+def _train_mask(batch: int, seq: int, seed: int, device) -> torch.Tensor:
+    """Ragged right-padded lengths, a one-token row and a left-padded row
+    (its first key blocks wholly in the other segment)."""
+    gen = torch.Generator().manual_seed(seed)
+    lengths = [1, seq, seq // 2 + 3] + torch.randint(
+        1, seq + 1, (batch - 3,), generator=gen
+    ).tolist()
+    lens = torch.tensor(lengths, device=device)
+    mask = (torch.arange(seq, device=device)[None, :] < lens[:, None]).to(torch.int32)
+    mask[-1] = 0
+    mask[-1, 130:] = 1
+    return mask
+
+
+def _check_flash_bwd_case(name, batch, seq, seed, device, dtype) -> tuple:
+    """Forward with lse and both backward kernels against the plain twins
+    on one input: out equal bit for bit with and without lse, lse within
+    the score tolerance of the twin's logsumexp, and dq, dk, dv within
+    ``ops.flash_attention.bwd_kernel_tolerance`` (derived there), dO zero
+    on pad rows as a pooled loss gives it. Returns (errors, inputs)."""
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, _ = flash_inputs(batch, seq, [seq] * batch, seed, device, dtype)
+    mask = _train_mask(batch, seq, seed, device)
+    scale = FLASH_DH**-0.5
+    out = FA.attention_flash(q, k, v, mask, scale)
+    out_lse, lse = FA.attention_flash(q, k, v, mask, scale, with_lse=True)
+    _, want_lse = FA.attention_flash_plain(q, k, v, mask, scale, with_lse=True)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dout = (torch.randn(out.shape, generator=gen, device=device) * mask[..., None]).to(dtype)
+    di = FA.row_dot(out, dout, FLASH_NQ)
+    dq = FA.attention_flash_bwd_dq(q, k, v, mask, dout, lse, di, scale)
+    dk, dv = FA.attention_flash_bwd_dkv(q, k, v, mask, dout, lse, di, scale)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_lse):
+        raise AssertionError(f"flash {name}: the output changed with lse on")
+    norms = float(q.float().norm(dim=-1).max()) * float(k.float().norm(dim=-1).max())
+    split = 3 * 2.0**-22 if dtype == torch.float32 else 0.0
+    lse_tol = 2 * (scale * (split + 7 * FLASH_DH * 2.0**-24) * norms
+                   + 2.0**-21 * (float(want_lse.abs().max()) + 1))
+    lse_err = float((lse - want_lse).abs().max())
+    if not lse_err <= lse_tol:
+        raise AssertionError(f"flash {name}: lse error {lse_err} > {lse_tol}")
+    want = FA.attention_flash_bwd_plain(q, k, v, mask, out, lse, dout, scale)
+    tols = FA.bwd_kernel_tolerance(q, k, v, mask, lse, dout, di, scale)
+    errs = {}
+    for label, got, ref, tol in zip(("dq", "dk", "dv"), (dq, dk, dv), want, tols):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash {name}: NaN or inf in {label}")
+        err = float((got.float() - ref.float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"flash {name}: {label} error {err} > {tol}")
+        errs[label] = (err, tol)
+    del want
+    log(
+        f"  flash backward {name} ({dtype}): B={batch} T={seq} out unchanged with lse; "
+        f"lse err {lse_err:.3g} (tol {lse_tol:.3g}); "
+        + "; ".join(f"{k_} err {e:.3g} (tol {t:.3g})" for k_, (e, t) in errs.items())
+    )
+    return errs, (q, k, v, mask, dout, lse, di)
+
+
+def check_flash_backward(device, dtype=torch.bfloat16) -> list[dict]:
+    """K5's dq and dk/dv kernels at the training shape (B 32 x T 256, the
+    CLI's documents; bf16 also at the forward's B 64 x T 512), timed at
+    the training shape beside their bound, the plain twin and SDPA's
+    backward."""
+    import torch.nn.functional as nnf
+
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
+    f32 = dtype == torch.float32
+    errs, inputs = _check_flash_bwd_case("training shape", TRAIN_B, TRAIN_T, 70, device, dtype)
+    if not f32:
+        more, _ = _check_flash_bwd_case("serving shape", FLASH_B, FLASH_T, 71, device, dtype)
+        errs = {k_: max(errs[k_], more[k_]) for k_ in errs}
+        torch.cuda.empty_cache()
+    q, k, v, mask, dout, lse, di = inputs
+    scale = FLASH_DH**-0.5
+    args = (q, k, v, mask, dout, lse, di, scale)
+    reps = 20
+    dq_ms = cuda_ms(lambda: FA.attention_flash_bwd_dq(*args), reps)
+    dkv_ms = cuda_ms(lambda: FA.attention_flash_bwd_dkv(*args), reps)
+    out = FA.attention_flash(q, k, v, mask, scale)
+    plain_ms = cuda_ms(
+        lambda: FA.attention_flash_bwd_plain(q, k, v, mask, out, lse, dout, scale), 3
+    )
+    # Yardstick the port never calls: SDPA's backward alone (it computes
+    # dq, dk and dv in one call), same boolean mask, grouped kv heads.
+    allowed = FA.allowed_keys(mask)[:, None]
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    sdpa_out = nnf.scaled_dot_product_attention(
+        *leaves, attn_mask=allowed, scale=scale, enable_gqa=True
+    )
+    grad_out = dout.reshape(q.shape).transpose(1, 2)
+    library_ms = cuda_ms(
+        lambda: torch.autograd.grad(sdpa_out, leaves, grad_out, retain_graph=True), reps
+    )
+    del sdpa_out, leaves
+    pairs = float(allowed.sum())
+    size = q.element_size()
+    common = (2 * q.numel() + k.numel() + v.numel()) * size + 2 * lse.numel() * 4 + mask.numel() * 4
+    suffix = "_f32" if f32 else ""
+    rate = TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
+    rows = []
+    for kernel, ms, written, products in (
+        ("dq", dq_ms, q.numel() * size, 3),
+        ("dkv", dkv_ms, (k.numel() + v.numel()) * size, 4),
+    ):
+        bytes_moved = common + written
+        flops = 2.0 * FLASH_DH * FLASH_NQ * pairs * products
+        b_ms, b_by = bound_ms(bytes_moved, flops, rate)
+        err = max(e for label, (e, _) in errs.items() if (label == "dq") == (kernel == "dq"))
+        name = f"flash_attention_bwd_{kernel}{suffix}"
+        log(
+            f"  {name} kernel {ms:.4f} ms, plain (dq, dk, dv together) {plain_ms:.4f} ms, "
+            f"library SDPA backward (dq, dk, dv together) {library_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.1f} "
+            f"GFLOP over {pairs:.0f} allowed pairs) at B={TRAIN_B} T={TRAIN_T}"
+        )
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "lean_explore_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": (
+                "lean_explore_tpu/models/qwen3.py:201 (jax/experimental/pallas/ops/tpu/"
+                f"flash_attention.py:{1456 if kernel == 'dq' else 1121}, JAX 0.9.0)"
+            ),
+            "launches": None,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": library_ms,
+        })
+    del inputs, args, out
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -690,12 +850,16 @@ def main() -> int:
             check_windowed(device, torch.float32),
             check_flash_attention(device),
             check_flash_attention(device, torch.float32),
+            *check_flash_backward(device, torch.float32),
+            *check_flash_backward(device),
         ]
         torch.cuda.empty_cache()
 
     if not args.kernels:
         with Phase("serving paths at full width"):
             run_service(device, kernels, card)
+        with Phase("5. training at full width"):
+            run_training(device, kernels, card)
 
     log(json.dumps({"kernels": kernels}))
     log(
@@ -973,6 +1137,8 @@ def launch_counters() -> dict:
         "bin_topk_int8": bin_topk_int8.bin_topk_int8_carry,
         "windowed_scores": windowed.fused_scores_wmax,
         "flash_attention": flash_attention.attention_flash,
+        "flash_attention_bwd_dq": flash_attention.attention_flash_bwd_dq,
+        "flash_attention_bwd_dkv": flash_attention.attention_flash_bwd_dkv,
     }
 
 
@@ -1368,6 +1534,272 @@ def dense_recall_at_10(embedder, dense, queries) -> float:
     if not recall >= 0.97:
         raise AssertionError(f"dense recall@10 {recall} below 0.97")
     return recall
+
+
+# ----------------------------------------------------------------------
+# Phase 5: training at full width
+# ----------------------------------------------------------------------
+
+TRAIN_DECLS = 2000
+TRAIN_STEPS, TRAIN_STEPS_RESUMED = 4, 6
+# Flash against einsum gradients, f32 at the 0.6B geometry: each layer's
+# f32 flash attention lies within eps_attn (relative) of the einsum's,
+# ``kernel_tolerance``'s worst case at T = 256, DH = 128 with the RMS-normed
+# |q| = |k| = sqrt(DH) (unit norm weights at init): 4 eps + 3 * 2^-22 +
+# 7 T 2^-24 with eps = DH^-0.5 (3 * 2^-22 + 7 DH 2^-24) DH, 2.6e-3. The
+# perturbations of the L layers add, in the forward and again in the
+# backward: loss and every gradient within a relative (L2) 2 L eps_attn.
+FLASH_EPS_ATTN = (
+    4 * FLASH_DH**-0.5 * (3 * 2.0**-22 + 7 * FLASH_DH * 2.0**-24) * FLASH_DH
+    + 3 * 2.0**-22 + 7 * 256 * 2.0**-24
+)
+
+
+def write_training_data(tmp: str):
+    """A declaration store of TRAIN_DECLS rows whose informalizations are
+    200-249 corpus words (one token each, so the 256-token document bucket
+    holds real tokens) and the smoke tokenizer with its special tokens.
+    Returns (data_dir, tokenizer)."""
+    from lean_explore_tpu_torch.models.store import Declaration, DeclarationStore
+
+    data = Path(tmp) / "train_data"
+    data.mkdir()
+    tokenizer = make_tokenizer(str(data))
+    (data / "tokenizer_config.json").write_text(
+        json.dumps({"pad_token": "<pad>", "eos_token": "<eos>", "unk_token": "<unk>"})
+    )
+    docs = long_documents(TRAIN_DECLS, 200, 250, seed=80)
+    store = DeclarationStore(str(data / "declarations.db"), create=True)
+    store.insert_many([
+        Declaration(
+            name=_synthetic_name(i), module=f"Pkg{i % 7}", source_text=f"def x{i}",
+            source_link=f"https://example/{i}", informalization=doc,
+        )
+        for i, doc in enumerate(docs)
+    ])
+    return data, tokenizer
+
+
+def export_random_06b(device, data_dir, out_dir) -> float:
+    """A random Qwen3-0.6B-geometry f32 checkpoint (seed 3) written by the
+    port's ``export_hf_checkpoint``, with the smoke tokenizer. Returns
+    seconds."""
+    from lean_explore_tpu_torch.models import qwen3
+    from lean_explore_tpu_torch.train.export import export_hf_checkpoint
+
+    t = time.perf_counter()
+    config = qwen06b_config()
+    params = qwen3.init_params(
+        config, torch.Generator(device=device).manual_seed(3), device=device
+    )
+    export_hf_checkpoint(params, config, out_dir, tokenizer_dir=data_dir)
+    del params
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t
+
+
+def _expect_training_launches(path: str, counts: dict, steps: int, layers: int) -> None:
+    """K5's forward, dq and dk/dv each launched once per layer per step,
+    and no other kernel."""
+    want = {
+        "flash_attention": steps * layers,
+        "flash_attention_bwd_dq": steps * layers,
+        "flash_attention_bwd_dkv": steps * layers,
+    }
+    got = {n: c for n, c in counts.items() if c}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, want {want}")
+
+
+# The variables with which an environment can ask the training CLI for the
+# CPU (``util.platform.requested_device``, the JAX package's own): unset
+# while the CLI runs here, so that it trains on the card whatever a
+# machine sets for JAX.
+CPU_REQUEST_VARS = ("JAX_PLATFORMS", "XLA_FLAGS")
+
+
+def run_cli(model_dir, data_dir, ckpt_dir, steps: int, card: str, layers: int):
+    """``python -m lean_explore_tpu_torch.train`` in-process with flash on,
+    at the CLI defaults (batch 32, queries 64, documents 256 tokens, lr
+    1e-5), checkpointing every 2 steps; returns (records, launch counts,
+    peak bytes)."""
+    from lean_explore_tpu_torch.train.__main__ import main as train_main
+
+    argv = [
+        "--model-dir", str(model_dir), "--data-dir", str(data_dir), "--steps", str(steps),
+        "--checkpoint-dir", str(ckpt_dir), "--checkpoint-every", "2", "--log-every", "1",
+    ]
+    saved = {name: os.environ.pop(name) for name in CPU_REQUEST_VARS if name in os.environ}
+    if saved:
+        log(f"  unset while the CLI trains on the card: {saved}")
+    os.environ[FLASH_ENV] = "1"
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with CountLaunches() as launched:
+            records = train_main(argv)
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop(FLASH_ENV, None)
+        os.environ.update(saved)
+    peak = torch.cuda.max_memory_allocated()
+    if not records or not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"CLI to step {steps}: losses {records}")
+    _expect_training_launches(f"CLI to step {steps}", launched.counts, len(records), layers)
+    log(
+        f"  CLI to step {steps}: steps {[r['step'] for r in records]}, losses "
+        f"{[round(r['loss'], 5) for r in records]}, pairs/s per step "
+        f"{[round(TRAIN_B / r['seconds'], 2) for r in records]}, peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launched.counts}; {card}"
+    )
+    return records, launched.counts, peak
+
+
+def compare_flash_gradients(device, data_dir, model_dir, card) -> tuple[float, float]:
+    """One CLI batch, one InfoNCE loss and backward with the flash variable
+    and one without, from the same f32 params: the loss and each parameter
+    tensor's gradient within a relative (L2) 2 L FLASH_EPS_ATTN (derived
+    above). Returns (loss difference, largest gradient error)."""
+    from lean_explore_tpu_torch.models.hf_loader import load_params
+    from lean_explore_tpu_torch.models.tokenizer import load_tokenizer
+    from lean_explore_tpu_torch.models.store import DeclarationStore
+    from lean_explore_tpu_torch.train import ContrastiveDataLoader, infonce_loss, pairs_from_store
+    from lean_explore_tpu_torch.train.contrastive import param_leaves, trainable
+
+    params, config = load_params(model_dir, dtype=torch.float32, device=device)
+    params = trainable(params)
+    pairs = pairs_from_store(DeclarationStore(str(Path(data_dir) / "declarations.db")))
+    batch = next(iter(ContrastiveDataLoader(load_tokenizer(model_dir), pairs, seed=5))).to(device)
+    results = {}
+    for flash in (True, False):
+        if flash:
+            os.environ[FLASH_ENV] = "1"
+        try:
+            with CountLaunches() as launched:
+                loss, _ = infonce_loss(params, config, batch)
+                loss.backward()
+                torch.cuda.synchronize()
+        finally:
+            os.environ.pop(FLASH_ENV, None)
+        layers = config.num_hidden_layers if flash else 0
+        want = {n: layers for n in
+                ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+        got = {n: launched.counts[n] for n in want}
+        if got != want or any(c for n, c in launched.counts.items() if n not in want):
+            raise AssertionError(f"flash={flash} gradients: launches {launched.counts}")
+        grads = [p.grad.detach().clone() for p in param_leaves(params)]
+        results[flash] = (float(loss.detach()), grads)
+        for p in param_leaves(params):
+            p.grad = None
+    tol = 2 * config.num_hidden_layers * FLASH_EPS_ATTN
+    loss_diff = abs(results[True][0] - results[False][0])
+    if not (np.isfinite(results[True][0]) and loss_diff <= tol * abs(results[False][0])):
+        raise AssertionError(f"flash vs einsum loss {results[True][0]} vs {results[False][0]}")
+    worst = 0.0
+    for g_flash, g_einsum in zip(results[True][1], results[False][1]):
+        rel = float((g_flash - g_einsum).norm() / g_einsum.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+    if not worst <= tol:
+        raise AssertionError(f"flash vs einsum gradients: relative L2 {worst} > {tol}")
+    log(
+        f"  flash vs einsum at the 0.6B geometry (f32, B={TRAIN_B}): loss "
+        f"{results[True][0]:.6f} vs {results[False][0]:.6f} (diff {loss_diff:.3g}); "
+        f"worst parameter-gradient relative L2 error {worst:.3g} (tol {tol:.3g}); {card}"
+    )
+    del params, results
+    torch.cuda.empty_cache()
+    return loss_diff, worst
+
+
+def run_cross_encoder(device, data_dir, card) -> dict:
+    """Two ``make_ce_train_step`` steps at the 0.6B geometry in bf16 (the
+    reranker's serving dtype), pairs truncated to max_length 256, flash on:
+    K5 forward, dq and dk/dv once per layer per step, finite losses.
+    Returns the launch counts."""
+    from lean_explore_tpu_torch.models.tokenizer import load_tokenizer
+    from lean_explore_tpu_torch.models.store import DeclarationStore
+    from lean_explore_tpu_torch.train import (
+        CrossEncoderDataLoader,
+        init_train_state,
+        make_ce_train_step,
+        make_optimizer,
+        pairs_from_store,
+    )
+
+    config = qwen06b_config()
+    optimizer = make_optimizer()
+    params, opt_state = init_train_state(
+        config, optimizer, seed=4, dtype=torch.bfloat16, device=device
+    )
+    pairs = pairs_from_store(DeclarationStore(str(Path(data_dir) / "declarations.db")))
+    # Matches and mismatches: each query with its own document, and with
+    # the next declaration's.
+    examples = [(q, d, 1) for q, d in pairs[:64]] + [
+        (q, pairs[i + 1][1], 0) for i, (q, _) in enumerate(pairs[:64])
+    ]
+    loader = iter(CrossEncoderDataLoader(
+        load_tokenizer(data_dir), examples, batch_size=TRAIN_B, max_length=256, seed=6
+    ))
+    step = make_ce_train_step(config, token_true=3, token_false=4)
+    batches = [next(loader).to(device) for _ in range(2)]
+    os.environ[FLASH_ENV] = "1"
+    try:
+        with CountLaunches() as launched:
+            t0 = time.perf_counter()
+            losses = []
+            for batch in batches:
+                params, opt_state, metrics = step(params, opt_state, batch)
+                losses.append(float(metrics["loss"]))
+            seconds = time.perf_counter() - t0
+    finally:
+        os.environ.pop(FLASH_ENV, None)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"cross-encoder losses {losses}")
+    _expect_training_launches("cross-encoder", launched.counts, 2, config.num_hidden_layers)
+    log(
+        f"  cross-encoder (bf16, T=256, B={TRAIN_B}): losses {[round(x, 5) for x in losses]}, "
+        f"{2 * TRAIN_B / seconds:.2f} pairs/s over 2 steps; launches {launched.counts}; {card}"
+    )
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launched.counts
+
+
+def run_training(device, kernels, card) -> None:
+    """Phase 5: 5b the training CLI to step 4 and, resumed, to step 6; 5c
+    flash against einsum gradients; 5d two cross-encoder steps. The kernel
+    checks at the training shape (5a) ran in phase 3."""
+    by_name = {k["name"]: k for k in kernels}
+    layers = qwen06b_config().num_hidden_layers
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        data_dir, _ = write_training_data(tmp)
+        model_dir = Path(tmp) / "model"
+        seconds = export_random_06b(device, data_dir, model_dir)
+        size = (model_dir / "model.safetensors").stat().st_size
+        log(f"  random 0.6B f32 checkpoint exported ({size / 1e9:.2f} GB) in {seconds:.1f} s")
+        ckpt = Path(tmp) / "ckpt"
+        with Phase("5b. training CLI, 4 steps then resumed to 6"):
+            first, counts, _ = run_cli(model_dir, data_dir, ckpt, TRAIN_STEPS, card, layers)
+            if [r["step"] for r in first] != list(range(1, TRAIN_STEPS + 1)):
+                raise AssertionError(f"first run steps {[r['step'] for r in first]}")
+            resumed, _, _ = run_cli(model_dir, data_dir, ckpt, TRAIN_STEPS_RESUMED, card, layers)
+            want = list(range(TRAIN_STEPS + 1, TRAIN_STEPS_RESUMED + 1))
+            if [r["step"] for r in resumed] != want:
+                raise AssertionError(f"the rerun did not resume: {[r['step'] for r in resumed]}")
+            for suffix in ("dq", "dkv"):
+                row = by_name[f"flash_attention_bwd_{suffix}_f32"]
+                row["launches"] = counts[f"flash_attention_bwd_{suffix}"]
+                row["launches_per_step"] = layers
+        with Phase("5c. flash against einsum gradients at full width"):
+            compare_flash_gradients(device, data_dir, model_dir, card)
+        with Phase("5d. cross-encoder, two steps"):
+            counts = run_cross_encoder(device, data_dir, card)
+            for suffix in ("dq", "dkv"):
+                row = by_name[f"flash_attention_bwd_{suffix}"]
+                row["launches"] = counts[f"flash_attention_bwd_{suffix}"]
+                row["launches_per_step"] = layers
+    for forbidden in ("jax", "lean_explore_tpu"):
+        if forbidden in sys.modules:
+            raise AssertionError(f"{forbidden} was imported on the training path")
 
 
 if __name__ == "__main__":

@@ -51,37 +51,26 @@
 // Shared memory: 173 KB at DH = 128, T = 512, one block per SM. The f32
 // output is written as f32.
 //
+// With an lse pointer (the `_lse` entries, for the backward), each kernel
+// also writes the row log-sum-exp of the scaled, masked scores in natural
+// log, lse = (m + log2 l) ln 2 from its log2-domain running max and sum,
+// to lse [B, NQ, T] f32: JAX's saved residuals l and m (`save_residuals`,
+// flash_attention.py:234-251) folded into one. It is a template flag, so
+// the entries without lse compile to the same code as before it existed.
+// The tiles and loaders are flash_tiles.cuh's, shared with the backward.
+//
 // Bound at the serving shape (B = 64, T = 512, NQ 16, NKV 8, DH 128): q, k,
 // v and out are 134.2 + 67.1 + 67.1 + 134.2 MB, 0.120 ms at 3.35 TB/s; the
 // causal products are about 68.7 GFLOP, 0.069 ms at 989 TFLOP/s bf16. The
 // kernel is bound by bytes (it rereads k and v from L2 for every q head and
 // query block).
 
-#include <cuda_bf16.h>
-#include <float.h>
-
 #include <type_traits>
 
-#include "mma_tiles.cuh"
+#include "flash_tiles.cuh"
 
 namespace tiles {
 namespace {  // the header's internal namespace, reopened
-
-constexpr int FA_BLOCK = 64;     // queries per block and keys per key block
-constexpr int FA_THREADS = 128;  // four warps of 16 query rows
-constexpr float FA_MASK = -0.7f * FLT_MAX;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // One key block of the online softmax for this thread's two rows (row_lo,
 // row_lo + 8) of a warp's 16 x 64 score fragment: scale s into the log2
@@ -142,45 +131,26 @@ __device__ __forceinline__ void reduce_row_sums(float (&l_run)[2]) {
   }
 }
 
-// Shared memory of a block: a Q tile, two K and two V tiles of 64 rows of
-// DH values of ELEM bytes, then the batch row's segment ids. Q and K rows
-// are padded by 16 bytes (ldmatrix reads 8 rows of 16 bytes at a stride of
-// 4 banks mod 32: conflict-free); f32 V rows by 32 bytes (the scalar loads
-// of a B fragment read rows t and columns g: 8t + g covers the 32 banks).
-template <int DH, int ELEM>
-struct FlashShape {
-  static constexpr int ROW = DH * ELEM + 16;
-  static constexpr int ROW_V = ELEM == 2 ? ROW : DH * ELEM + 32;
-  static constexpr int TILE = FA_BLOCK * ROW;
-  static constexpr int TILE_V = FA_BLOCK * ROW_V;
-  static constexpr int CHUNKS = DH * ELEM / 16;  // 16-byte chunks per row
-  static size_t smem_bytes(int T) {
-    return 3 * TILE + 2 * TILE_V + sizeof(int) * (size_t)T;
-  }
-};
-
-// cp.async of 64 rows of DH * ELEM bytes (row stride `stride` bytes) into a
-// tile of row stride ROW.
-template <int DH, int ELEM, int ROW>
-__device__ __forceinline__ void load_tile(uint8_t* tile, const uint8_t* rows,
-                                          long long stride, int tid) {
-  constexpr int CHUNKS = FlashShape<DH, ELEM>::CHUNKS;
-#pragma unroll
-  for (int i = 0; i < FA_BLOCK * CHUNKS / FA_THREADS; ++i) {
-    const int c = tid + i * FA_THREADS;
-    const int r = c / CHUNKS;
-    const int col = (c % CHUNKS) * 16;
-    cp_async16(tile + r * ROW + col, rows + r * stride + col, 16);
+// The row log-sum-exp of the scaled, masked scores in natural-log units,
+// lse = (m + log2 l) ln 2 from the log2-domain running max m and sum l, to
+// lse[b, h, row] ([B, NQ, T] f32), written by one lane of each quad.
+__device__ __forceinline__ void store_lse(float* lse, const float (&m_run)[2],
+                                          const float (&l_run)[2], long long bh, int T,
+                                          int row_lo, int lane) {
+  if ((lane & 3) == 0) {
+    lse[bh * T + row_lo] = (m_run[0] + log2f(l_run[0])) * LN2;
+    lse[bh * T + row_lo + 8] = (m_run[1] + log2f(l_run[1])) * LN2;
   }
 }
 
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const uint8_t* __restrict__ q,    // [B, T, NQ, DH] bf16
                        const uint8_t* __restrict__ k,    // [B, T, NKV, DH] bf16
                        const uint8_t* __restrict__ v,    // [B, T, NKV, DH] bf16
                        const int* __restrict__ seg,      // [B, T]
                        uint8_t* __restrict__ out,        // [B, T, NQ, DH] bf16
+                       float* __restrict__ lse,          // [B, NQ, T] f32 when LSE
                        int T, int NQ, int NKV, float scale_log2) {
   using S = FlashShape<DH, 2>;
   constexpr int KSTEPS = DH / 16;  // k16 steps of QK^T
@@ -291,6 +261,7 @@ flash_attention_kernel(const uint8_t* __restrict__ q,    // [B, T, NQ, DH] bf16
 
   // One normalisation by the full row sums, then bf16 out.
   reduce_row_sums(l_run);
+  if constexpr (LSE) store_lse(lse, m_run, l_run, (long long)b * NQ + h, T, row_lo, lane);
   const float inv[2] = {1.0f / l_run[0], 1.0f / l_run[1]};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -304,13 +275,14 @@ flash_attention_kernel(const uint8_t* __restrict__ q,    // [B, T, NQ, DH] bf16
   }
 }
 
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_f32_kernel(const uint8_t* __restrict__ q,  // [B, T, NQ, DH] f32
                            const uint8_t* __restrict__ k,  // [B, T, NKV, DH] f32
                            const uint8_t* __restrict__ v,  // [B, T, NKV, DH] f32
                            const int* __restrict__ seg,    // [B, T]
                            float* __restrict__ out,        // [B, T, NQ, DH] f32
+                           float* __restrict__ lse,        // [B, NQ, T] f32 when LSE
                            int T, int NQ, int NKV, float scale_log2) {
   using S = FlashShape<DH, 4>;
   constexpr int KSTEPS = DH / 8;  // k8 steps (32 bytes) of QK^T
@@ -433,6 +405,7 @@ flash_attention_f32_kernel(const uint8_t* __restrict__ q,  // [B, T, NQ, DH] f32
   cp_async_wait_all();
 
   reduce_row_sums(l_run);
+  if constexpr (LSE) store_lse(lse, m_run, l_run, (long long)b * NQ + h, T, row_lo, lane);
   const float inv[2] = {1.0f / l_run[0], 1.0f / l_run[1]};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -444,20 +417,44 @@ flash_attention_f32_kernel(const uint8_t* __restrict__ q,  // [B, T, NQ, DH] f32
   }
 }
 
-template <int DH, int ELEM, class Kernel>
-int launch_flash(Kernel kernel, const void* q, const void* k, const void* v, const void* seg,
-                 void* out, int B, int T, int NQ, int NKV, float sm_scale, void* stream) {
+template <int DH, int ELEM, bool LSE>
+int launch_flash(const void* q, const void* k, const void* v, const void* seg, void* out,
+                 void* lse, int B, int T, int NQ, int NKV, float sm_scale, void* stream) {
+  using Out = typename std::conditional<ELEM == 2, uint8_t, float>::type;
+  void (*kernel)(const uint8_t*, const uint8_t*, const uint8_t*, const int*, Out*, float*, int,
+                 int, int, float);
+  if constexpr (ELEM == 2) {
+    kernel = flash_attention_kernel<DH, LSE>;
+  } else {
+    kernel = flash_attention_f32_kernel<DH, LSE>;
+  }
   const size_t smem = FlashShape<DH, ELEM>::smem_bytes(T);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(T / FA_BLOCK, NQ, B);
-  using Out = typename std::conditional<ELEM == 2, uint8_t, float>::type;
   kernel<<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
       static_cast<const uint8_t*>(v), static_cast<const int*>(seg), static_cast<Out*>(out),
-      T, NQ, NKV, sm_scale * LOG2E);
+      static_cast<float*>(lse), T, NQ, NKV, sm_scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the instantiation for DH (64 or 128) and for lse given or null.
+template <int ELEM>
+int dispatch_flash(const void* q, const void* k, const void* v, const void* seg, void* out,
+                   void* lse, int B, int T, int NQ, int NKV, int DH, float sm_scale,
+                   void* stream) {
+  if (DH != 64 && DH != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (DH == 128)
+    return lse ? launch_flash<128, ELEM, true>(q, k, v, seg, out, lse, B, T, NQ, NKV, sm_scale,
+                                               stream)
+               : launch_flash<128, ELEM, false>(q, k, v, seg, out, lse, B, T, NQ, NKV,
+                                                sm_scale, stream);
+  return lse ? launch_flash<64, ELEM, true>(q, k, v, seg, out, lse, B, T, NQ, NKV, sm_scale,
+                                            stream)
+             : launch_flash<64, ELEM, false>(q, k, v, seg, out, lse, B, T, NQ, NKV, sm_scale,
+                                             stream);
 }
 
 }  // namespace
@@ -472,28 +469,31 @@ extern "C" {
 int flash_attention_fwd(const void* q, const void* k, const void* v, const void* seg,
                         void* out, int B, int T, int NQ, int NKV, int DH, float sm_scale,
                         void* stream) {
-  using namespace tiles;
-  if (DH == 128)
-    return launch_flash<128, 2>(flash_attention_kernel<128>, q, k, v, seg, out, B, T, NQ, NKV,
-                                sm_scale, stream);
-  if (DH == 64)
-    return launch_flash<64, 2>(flash_attention_kernel<64>, q, k, v, seg, out, B, T, NQ, NKV,
-                               sm_scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tiles::dispatch_flash<2>(q, k, v, seg, out, nullptr, B, T, NQ, NKV, DH, sm_scale,
+                                  stream);
 }
 
 // The same over float32 q, k, v, writing float32 out (3xTF32 products).
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v, const void* seg,
                             void* out, int B, int T, int NQ, int NKV, int DH, float sm_scale,
                             void* stream) {
-  using namespace tiles;
-  if (DH == 128)
-    return launch_flash<128, 4>(flash_attention_f32_kernel<128>, q, k, v, seg, out, B, T, NQ,
-                                NKV, sm_scale, stream);
-  if (DH == 64)
-    return launch_flash<64, 4>(flash_attention_f32_kernel<64>, q, k, v, seg, out, B, T, NQ,
-                               NKV, sm_scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tiles::dispatch_flash<4>(q, k, v, seg, out, nullptr, B, T, NQ, NKV, DH, sm_scale,
+                                  stream);
+}
+
+// Both, also writing the row log-sum-exp lse [B, NQ, T] f32 (natural log,
+// of the scaled masked scores), the backward's residual. The output and
+// its arithmetic are those of the entries above.
+int flash_attention_fwd_lse(const void* q, const void* k, const void* v, const void* seg,
+                            void* out, void* lse, int B, int T, int NQ, int NKV, int DH,
+                            float sm_scale, void* stream) {
+  return tiles::dispatch_flash<2>(q, k, v, seg, out, lse, B, T, NQ, NKV, DH, sm_scale, stream);
+}
+
+int flash_attention_fwd_f32_lse(const void* q, const void* k, const void* v, const void* seg,
+                                void* out, void* lse, int B, int T, int NQ, int NKV, int DH,
+                                float sm_scale, void* stream) {
+  return tiles::dispatch_flash<4>(q, k, v, seg, out, lse, B, T, NQ, NKV, DH, sm_scale, stream);
 }
 
 }  // extern "C"

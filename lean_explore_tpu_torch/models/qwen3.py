@@ -19,9 +19,16 @@ attention mask is an additive -1e9 bias, never a boolean mask: a fully
 masked pad row would give NaN softmax rows that leak into valid rows.
 Attention is plain torch ops (the JAX trunk's default is XLA einsums), or,
 opt-in through LEAN_EXPLORE_FLASH_ATTENTION as in the JAX trunk, the flash
-attention of ``ops.flash_attention``: the hand-written Hopper kernel on the
-card, the port of the Pallas TPU kernel the JAX trunk calls there. Only the
-two scored vocabulary columns of the head are computed for reranking.
+attention of ``ops.flash_attention``: the hand-written Hopper kernels on the
+card, the port of the Pallas TPU kernel the JAX trunk calls there, with its
+backward kernels when a gradient is taken. Only the two scored vocabulary
+columns of the head are computed for reranking.
+
+``forward_hidden``, ``embed_pool``, ``last_token_logits``, ``rerank_scores``
+and ``_pair_logits`` are differentiable, as the JAX functions are, for the
+trainers of ``lean_explore_tpu_torch.train``; serving builds no graph
+because its params need no gradient and the clients call the trunk under
+``torch.no_grad``. The prefix-KV reranker stays no-grad: it serves only.
 """
 
 import json
@@ -66,6 +73,19 @@ class Qwen3Config:
             rms_norm_eps=cfg.get("rms_norm_eps", 1e-6),
             rope_theta=cfg.get("rope_theta", 1_000_000.0),
             tie_word_embeddings=cfg.get("tie_word_embeddings", True),
+        )
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 512) -> "Qwen3Config":
+        """Small config for tests and smoke runs (the JAX package's)."""
+        return cls(
+            vocab_size=vocab_size,
+            hidden_size=64,
+            num_hidden_layers=2,
+            num_attention_heads=4,
+            num_key_value_heads=2,
+            head_dim=16,
+            intermediate_size=128,
         )
 
     @classmethod
@@ -178,9 +198,14 @@ def _attention_flash(q, k, v, attention_mask):
     [B, T, T] probabilities never exist. Padding is expressed as segment
     ids (the 0/1 mask: pad tokens in segment 0, valid ones in segment 1),
     so a valid query sees only valid keys; pad rows' outputs are discarded
-    by the mask-aware pooling. GQA takes kv head h / (NQ / NKV) inside the
-    kernel, the JAX path's ``jnp.repeat`` without the copy."""
+    by the mask-aware pooling, so their gradients are zero. GQA takes kv
+    head h / (NQ / NKV) inside the kernels, the JAX path's ``jnp.repeat``
+    without the copy. When a gradient is taken, ``FlashAttention`` keeps
+    the row log-sum-exp for its backward kernels; otherwise (serving) the
+    forward runs alone, without it."""
     dh = q.shape[-1]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return flash_ops.FlashAttention.apply(q, k, v, attention_mask, dh**-0.5)
     return flash_ops.attention_flash(q, k, v, attention_mask, dh**-0.5)
 
 
@@ -256,7 +281,6 @@ def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool, flash=Fa
     return x, ks, vs
 
 
-@torch.no_grad()
 def forward_hidden(
     params, config, input_ids, attention_mask, *, flash: bool | None = None
 ) -> torch.Tensor:
@@ -288,7 +312,6 @@ def _pool_last(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tens
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), last]
 
 
-@torch.no_grad()
 def embed_pool(params, config, input_ids, attention_mask) -> torch.Tensor:
     """Last-valid-token hidden state, L2-normalized, f32 [B, H]."""
     hidden = forward_hidden(params, config, input_ids, attention_mask)
@@ -315,7 +338,6 @@ def _lm_head(params, hidden: torch.Tensor) -> torch.Tensor:
     return hidden.to(torch.float32) @ head.to(torch.float32)
 
 
-@torch.no_grad()
 def last_token_logits(params, config, input_ids, attention_mask) -> torch.Tensor:
     """Logits at the last valid position only, [B, V] f32: the head runs on
     one position instead of all T."""
@@ -331,7 +353,6 @@ def _pair_logits(params, hidden, token_false: int, token_true: int):
     return hidden.to(torch.float32) @ sliver.to(torch.float32)
 
 
-@torch.no_grad()
 def rerank_scores(
     params, config, input_ids, attention_mask, *, token_true: int, token_false: int
 ) -> torch.Tensor:

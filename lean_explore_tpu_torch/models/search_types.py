@@ -6,6 +6,19 @@ same dict, so consumers see one schema from either package.
 """
 
 import dataclasses
+import re
+
+_BOLD_HEADER_RE = re.compile(r"\*\*(.+?)\*\*")
+
+
+def extract_bold_description(informalization: str | None) -> str | None:
+    """The leading ``**Bold Title.**`` header of an informalization (the
+    text between its first pair of ``**`` at the start), or None: the JAX
+    package's function of the same name."""
+    if not informalization:
+        return None
+    match = _BOLD_HEADER_RE.match(informalization)
+    return match.group(1) if match else None
 
 
 class _Dumpable:

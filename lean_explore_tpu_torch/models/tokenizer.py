@@ -84,6 +84,7 @@ class WordLevelTokenizer:
         if spec.get("normalizer") is not None:
             raise ValueError("tokenizer normalizers are not supported")
         self.vocab: dict[str, int] = dict(model["vocab"])
+        self._decoder = spec.get("decoder")
         self._pre = _pre_tokenizer(spec.get("pre_tokenizer"))
         unk_token = unk_token or model.get("unk_token")
         self.unk_token_id = self.vocab.get(unk_token) if unk_token else None
@@ -94,6 +95,7 @@ class WordLevelTokenizer:
             if token and token in self.vocab:
                 specials.setdefault(token, self.vocab[token])
         self._specials = specials
+        self._id_to_token = {i: t for t, i in {**self.vocab, **specials}.items()}
         self._special_re = (
             re.compile(
                 "|".join(
@@ -150,6 +152,17 @@ class WordLevelTokenizer:
 
     def convert_tokens_to_ids(self, token: str) -> int | None:
         return self.vocab.get(token, self.unk_token_id)
+
+    def decode(self, ids) -> str:
+        """The tokens of ``ids`` joined by single spaces, special tokens
+        kept: what HuggingFace's decode gives for a tokenizer.json without a
+        decoder and without clean-up of tokenization spaces (the committed
+        checkpoints' tokenizers). Another decoder raises."""
+        if self._decoder is not None:
+            raise NotImplementedError(
+                f"decode of a tokenizer with a {self._decoder.get('type')!r} decoder"
+            )
+        return " ".join(self._id_to_token[int(i)] for i in ids)
 
 
 def load_tokenizer(model_dir: str | Path) -> WordLevelTokenizer:

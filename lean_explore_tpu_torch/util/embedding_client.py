@@ -175,9 +175,10 @@ class EmbeddingClient:
     def dim(self) -> int:
         return self.config.hidden_size
 
+    @torch.no_grad()
     def embed_device(self, texts: list[str], is_query: bool = False) -> torch.Tensor:
         """Embed texts -> L2-normalized f32 tensor [len(texts), H] on the
-        client's device."""
+        client's device (no autograd graph, whatever the params)."""
         if not texts:
             return torch.zeros(
                 (0, self.config.hidden_size), dtype=torch.float32, device=self.device

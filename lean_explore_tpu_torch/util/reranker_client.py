@@ -186,6 +186,7 @@ class RerankerClient:
     def _tensor(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
+    @torch.no_grad()
     def _score_batch(self, batch) -> np.ndarray:
         scores = qwen3_mod.rerank_scores(
             self.params,

@@ -1,19 +1,23 @@
-"""Do the port's bf16 retrieval kernels give the same bits as another
-tree's build of them? On one GPU.
+"""Do the port's bf16 retrieval kernels and its flash-attention forward
+give the same bits as another tree's build of them? On one GPU.
 
     python3 scripts/compare_torch_kernel_builds.py --other unpacked/parent
 
-Builds ``csrc/bin_topk.cu`` and ``csrc/windowed_scores.cu`` of this tree and
-of the tree at ``--other`` (for example the parent commit, unpacked with
-``git archive`` into a directory that .gitignore lists) with the port's nvcc
-flags, each into its own directory under ``build/compare_builds/``, loads
-both with ctypes and calls their bf16 entry points (``bin_topk_carry``,
-``windowed_scores``, whose C interface is the same in both) on the same
-inputs: the serving shape (300,000 valid rows of a 300,032 x 1024 unit-row
-corpus, B = 128, bins = 4096, window 8) and two small shapes. It prints,
-per kernel and shape, whether the outputs are equal bit for bit, then the
-registers ``ptxas -v`` reports for each build, and exits 1 if any output
-differs. Needs a CUDA device and nvcc; exits 2 without a device.
+Builds ``csrc/bin_topk.cu``, ``csrc/windowed_scores.cu`` and
+``csrc/flash_attention.cu`` of this tree and of the tree at ``--other`` (for
+example the parent commit, unpacked with ``git archive`` into a directory
+that .gitignore lists) with the port's nvcc flags, each into its own
+directory under ``build/compare_builds/``, loads both with ctypes and calls
+entry points whose C interface is the same in both on the same inputs:
+``bin_topk_carry`` and ``windowed_scores`` (bf16) at the serving shape
+(300,000 valid rows of a 300,032 x 1024 unit-row corpus, B = 128,
+bins = 4096, window 8) and two small shapes, and ``flash_attention_fwd``
+(bf16) and ``flash_attention_fwd_f32`` (the forward without lse) at the
+serving shape (B = 64, T = 512, 16/8 heads, DH 128, ragged lengths) and a
+small DH 64 shape. It prints, per kernel and shape, whether the outputs are
+equal bit for bit, then the registers ``ptxas -v`` reports for each build,
+and exits 1 if any output differs. Needs a CUDA device and nvcc; exits 2
+without a device.
 """
 
 import argparse
@@ -26,7 +30,9 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-KERNELS = ("bin_topk", "windowed_scores")
+KERNELS = ("bin_topk", "windowed_scores", "flash_attention")
+# (batch, seq, nq, nkv, dh) of the flash-attention forward
+FLASH_SHAPES = ((64, 512, 16, 8, 128), (3, 256, 4, 2, 64))
 # (n_rows, n_valid, dim, batch, bins, window)
 SHAPES = (
     (300_032, 300_000, 1024, 128, 4096, 8),
@@ -62,12 +68,19 @@ def build(csrc: Path, out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
 
 def _configure(kernel: str, lib: ctypes.CDLL) -> None:
     if kernel == "bin_topk":
-        fn = lib.bin_topk_carry
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fns = [lib.bin_topk_carry]
+        fns[0].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    elif kernel == "windowed_scores":
+        fns = [lib.windowed_scores]
+        fns[0].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     else:
-        fn = lib.windowed_scores
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        fns = [lib.flash_attention_fwd, lib.flash_attention_fwd_f32]
+        for fn in fns:
+            fn.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+            )
+    for fn in fns:
+        fn.restype = ctypes.c_int
 
 
 def run_bin_topk(lib, q, corpus, n_valid, bins) -> torch.Tensor:
@@ -104,6 +117,42 @@ def run_windowed(lib, q, corpus, n_valid, window) -> torch.Tensor:
     return torch.cat([scores.flatten(), wmax.flatten()])
 
 
+def run_flash(lib, q, k, v, mask) -> torch.Tensor:
+    b, t, nq, dh = q.shape
+    out = torch.empty(b, t, nq * dh, dtype=q.dtype, device=q.device)
+    fn = lib.flash_attention_fwd if q.dtype == torch.bfloat16 else lib.flash_attention_fwd_f32
+    status = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), b, t,
+        nq, k.shape[2], dh, float(dh**-0.5), torch.cuda.current_stream().cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"flash_attention_fwd: cudaError {status}")
+    return out
+
+
+def compare_flash(builds) -> tuple[list[dict], bool]:
+    """The flash forward of both builds, bf16 and f32, on the same inputs."""
+    results, ok = [], True
+    for b, t, nq, nkv, dh in FLASH_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(b * t + dh)
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(torch.int32)
+        base = [torch.randn(b, t, h, dh, generator=gen, device="cuda") for h in (nq, nkv, nkv)]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in base)
+            outs = {tag: run_flash(libs["flash_attention"][0], q, k, v, mask)
+                    for tag, libs in builds.items()}
+            torch.cuda.synchronize()
+            same = torch.equal(outs["this"], outs["other"])
+            ok &= same
+            results.append({
+                "kernel": "flash_attention", "dtype": str(dtype), "batch": b, "seq": t,
+                "nq": nq, "nkv": nkv, "dh": dh, "bit_identical": same,
+            })
+            print(json.dumps(results[-1]), flush=True)
+    return results, ok
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="root of the other tree")
@@ -135,7 +184,7 @@ def main() -> int:
         corpus[n_valid:] = 0
         q = torch.randn(batch, dim, generator=gen, device="cuda")
         q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        for kernel in KERNELS:
+        for kernel in ("bin_topk", "windowed_scores"):
             outs = {}
             for tag, libs in builds.items():
                 lib = libs[kernel][0]
@@ -154,6 +203,9 @@ def main() -> int:
                 "bit_identical": same,
             })
             print(json.dumps(results[-1]), flush=True)
+    flash_results, flash_ok = compare_flash(builds)
+    results += flash_results
+    ok &= flash_ok
     for tag, libs in builds.items():
         for kernel, (_, regs) in libs.items():
             print(f"{tag} {kernel}: {regs}", flush=True)

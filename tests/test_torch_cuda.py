@@ -339,3 +339,132 @@ def test_forward_hidden_takes_flash_once_per_layer(cuda, monkeypatch, dtype):
         flash[valid].float(), einsum[valid].float(), dim=-1
     )
     assert float(cos.min()) >= 0.999
+
+
+def _left_pad(mask, row, start):
+    mask[row] = 0
+    mask[row, start:] = 1
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,t,nq,nkv,dh,lengths",
+    [
+        (4, 256, 4, 2, 128, [1, 63, 200, 256]),
+        (3, 128, 4, 4, 64, [128, 100, 1]),
+        (2, 192, 6, 2, 64, [192, 130]),
+    ],
+)
+def test_flash_lse_matches_plain_and_keeps_out(cuda, b, t, nq, nkv, dh, lengths, dtype):
+    """The forward with lse gives the same output, bit for bit, as without,
+    and an lse within the score tolerance of the twin's on every row (pad
+    rows have their own segment and the diagonal, so a finite lse): the
+    kernel's log2-domain max and sum and the twin's logsumexp differ by the
+    score error eps_s of ``bwd_kernel_tolerance`` plus the exp2/log2
+    roundings, 2^-21 (max|lse| + 1)."""
+    q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, lengths, seed=7 + dh, dtype=dtype)
+    mask = _left_pad(mask, 0, 70)
+    out = FA.attention_flash(q, k, v, mask, dh**-0.5)
+    got, lse = FA.attention_flash(q, k, v, mask, dh**-0.5, with_lse=True)
+    _, want = FA.attention_flash_plain(q, k, v, mask, dh**-0.5, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    assert lse.shape == (b, nq, t) and lse.dtype == torch.float32
+    assert bool(torch.isfinite(lse).all())
+    norms = float(q.float().norm(dim=-1).max()) * float(k.float().norm(dim=-1).max())
+    split = 3 * 2.0**-22 if dtype == torch.float32 else 0.0
+    tol = dh**-0.5 * (split + 7 * dh * 2.0**-24) * norms + 2.0**-21 * (
+        float(want.abs().max()) + 1
+    )
+    assert float((lse - want).abs().max()) <= 2 * tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,t,nq,nkv,dh,lengths",
+    [
+        (4, 256, 4, 2, 128, [1, 63, 200, 256]),
+        (3, 128, 4, 4, 64, [128, 100, 1]),
+        (2, 192, 6, 2, 64, [192, 130]),
+    ],
+)
+def test_flash_backward_matches_plain(cuda, b, t, nq, nkv, dh, lengths, dtype):
+    """dq and dk/dv kernels against ``attention_flash_bwd_plain`` on the same
+    residuals, within ``bwd_kernel_tolerance`` (derived there), with a
+    right-padded, a left-padded and a one-token row and dO zero on pad
+    rows: every gradient finite, one launch each."""
+    q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, lengths, seed=11 + dh, dtype=dtype)
+    mask = _left_pad(mask, b - 1, 66)
+    scale = dh**-0.5
+    out, lse = FA.attention_flash(q, k, v, mask, scale, with_lse=True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dout = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    dout = (dout * mask[..., None]).contiguous()
+    di = FA.row_dot(out, dout, nq)
+    before = (FA.attention_flash_bwd_dq.launches, FA.attention_flash_bwd_dkv.launches)
+    dq = FA.attention_flash_bwd_dq(q, k, v, mask, dout, lse, di, scale)
+    dk, dv = FA.attention_flash_bwd_dkv(q, k, v, mask, dout, lse, di, scale)
+    assert (FA.attention_flash_bwd_dq.launches, FA.attention_flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1,
+    )
+    want = FA.attention_flash_bwd_plain(q, k, v, mask, out, lse, dout, scale)
+    tols = FA.bwd_kernel_tolerance(q, k, v, mask, lse, dout, di, scale)
+    torch.cuda.synchronize()
+    for name, got, ref, tol in zip(("dq", "dk", "dv"), (dq, dk, dv), want, tols):
+        assert got.shape == ref.shape and got.dtype == dtype, name
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= tol, (name, err, tol)
+
+
+def test_flash_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v, mask = _flash_inputs(cuda, 1, 128, 4, 2, 64, [128], seed=1)
+    out, lse = FA.attention_flash(q, k, v, mask, 0.125, with_lse=True)
+    di = FA.row_dot(out, out, 4)
+    for fn in (FA.attention_flash_bwd_dq, FA.attention_flash_bwd_dkv):
+        with pytest.raises(TypeError, match="bf16 or float32"):
+            fn(q.half(), k.half(), v.half(), mask, out.half(), lse, di, 0.125)
+        with pytest.raises(ValueError, match="dout"):
+            fn(q, k, v, mask, out.float(), lse, di, 0.125)
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, mask, out, lse.to(torch.bfloat16), di, 0.125)
+        with pytest.raises(ValueError, match="di"):
+            fn(q, k, v, mask, out, lse, di[:, :2].contiguous(), 0.125)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            fn(q[:, :96], k[:, :96], v[:, :96], mask[:, :96], out[:, :96],
+               lse[..., :96].contiguous(), di[..., :96].contiguous(), 0.125)
+
+
+def test_training_step_takes_each_flash_kernel_once_per_layer(cuda, monkeypatch):
+    """One f32 InfoNCE step of make_train_step with the variable set, the
+    documents at T = 256 and the queries at T = 64: the documents' forward
+    launches K5 once per layer and the backward dq and dk/dv once per layer
+    each; the queries take the einsum path. The loss is finite."""
+    from lean_explore_tpu_torch.models import qwen3
+    from lean_explore_tpu_torch.train import contrastive as C
+
+    config = qwen3.Qwen3Config(
+        vocab_size=64, hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, head_dim=64, intermediate_size=512,
+    )
+    optimizer_factory = C.make_optimizer(learning_rate=1e-5)
+    params, opt_state = C.init_train_state(config, optimizer_factory, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    mask_d = torch.ones(4, 256, dtype=torch.int32, device=cuda)
+    mask_d[1, 120:] = 0
+    batch = C.ContrastiveBatch(
+        torch.randint(3, 64, (4, 64), generator=gen, device=cuda),
+        torch.ones(4, 64, dtype=torch.int32, device=cuda),
+        torch.randint(3, 64, (4, 256), generator=gen, device=cuda),
+        mask_d,
+        torch.zeros(4, 4, dtype=torch.bool, device=cuda),
+    )
+    monkeypatch.setenv("LEAN_EXPLORE_FLASH_ATTENTION", "1")
+    step = C.make_train_step(config)
+    counters = (FA.attention_flash, FA.attention_flash_bwd_dq, FA.attention_flash_bwd_dkv)
+    before = [c.launches for c in counters]
+    params, opt_state, metrics = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 2]
+    assert np.isfinite(float(metrics["loss"]))

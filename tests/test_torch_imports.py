@@ -1,13 +1,15 @@
-"""Import hygiene of the port: its serving path loads no JAX and none of the
-packages the card's machine lacks.
+"""Import hygiene of the port: its serving and training paths load no JAX
+and none of the packages the card's machine lacks.
 
 A fresh interpreter imports the port, runs CPU searches through
 ``Service.search_batch`` (tiny random weights, a WordLevel tokenizer, a
 BM25 + dense artifact set built in memory; a float32 and then an int8
 dense index), a windowed dense search and a trunk forward on flash
 attention (``forward_hidden(flash=True)`` at T = 256, the kernel's plain
-twin on the CPU), and then reports which of the forbidden modules are in
-``sys.modules``.
+twin on the CPU), one InfoNCE train step of ``lean_explore_tpu_torch.train``
+with the documents on flash attention (forward and backward twins) and an
+HF export of the trained params, and then reports which of the forbidden
+modules are in ``sys.modules``.
 """
 
 import json
@@ -17,8 +19,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = (
-    "jax", "lean_explore_tpu", "transformers", "tokenizers", "pydantic",
-    "safetensors",
+    "jax", "optax", "orbax", "lean_explore_tpu", "transformers", "tokenizers",
+    "pydantic", "safetensors",
 )
 
 SCRIPT = r"""
@@ -92,6 +94,18 @@ flash_mask = torch.ones(2, 256, dtype=torch.int32)
 flash_mask[0, 100:] = 0
 hidden = qwen3.forward_hidden(embedder.params, config, flash_ids, flash_mask, flash=True)
 assert hidden.shape == (2, 256, 32) and bool(torch.isfinite(hidden).all())
+from lean_explore_tpu_torch import train
+from lean_explore_tpu_torch.train.export import export_hf_checkpoint
+optimizer = train.make_optimizer()
+params, opt_state = train.init_train_state(config, optimizer, seed=0, device="cpu")
+qwen3._use_flash = lambda seq_len, device: seq_len >= 256
+batch = train.ContrastiveBatch(
+    flash_ids[:, :32], torch.ones(2, 32, dtype=torch.int32), flash_ids, flash_mask,
+    torch.zeros(2, 2, dtype=torch.bool),
+)
+params, opt_state, metrics = train.make_train_step(config)(params, opt_state, batch)
+assert np.isfinite(float(metrics["loss"]))
+export_hf_checkpoint(params, config, f"{tmp}/export")
 print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
 """
 
@@ -104,4 +118,4 @@ def test_serving_path_imports_no_forbidden_module():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert loaded == [], f"the port's serving path imported {loaded}"
+    assert loaded == [], f"the port's serving or training path imported {loaded}"
