@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
+    python3 chip_smoke.py --kernels  # phases 1-3b only (build + kernel checks)
 
 Phases, each announced before it starts and timed after it ends:
 
@@ -10,11 +10,15 @@ Phases, each announced before it starts and timed after it ends:
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and time both beside the card's bound
    and one PyTorch library call for the same function: bin_topk over a
-   bf16 and a float32 corpus, bin_topk_int8, windowed_scores over a bf16
+   bf16 and a float32 corpus, bin_topk_pipelined over the same inputs
+   (its carry equal to bin_topk's kernel carry bit for bit, for 2, 3 and 4
+   ring stages, and timed beside it), bin_topk_int8, windowed_scores over a bf16
    and a float32 corpus, and flash_attention over bf16 and float32 inputs
    at the Qwen3-0.6B serving geometry; then K5's backward kernels (dq and
    dk/dv, float32 and bf16) and its forward's lse at the training shape
    (B 32 x T 256; bf16 also at B 64 x T 512), timed beside SDPA's backward;
+   3b. ``bin_topk_pipelined`` through its entry point at the serving shape,
+   bf16 and float32: its only path, since neither package routes to it;
 4. drive ``Service.search_batch`` of the port at full width: a 300,000-row
    synthetic store, a 300,000 x 1024 bf16 dense index on the card, and two
    clients of the Qwen3-0.6B geometry with random bf16 weights from a seed,
@@ -40,8 +44,8 @@ Phases, each announced before it starts and timed after it ends:
    5c one batch's loss and gradients with flash and without; 5d two
    cross-encoder steps in bf16 at max_length 256. Every step launches K5's
    forward, dq and dk/dv once per layer each, and no other kernel.
-Every kernel's launch count is set to 0 just before each path of phases 4
-and 5 is driven and read just after it.
+Every kernel's launch count is set to 0 just before each path of phases
+3b, 4 and 5 is driven and read just after it.
 
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure raises, so the run exits non-zero with its
@@ -124,8 +128,10 @@ def _unit_rows(
     return (x / x.norm(dim=1, keepdim=True)).to(dtype)
 
 
-def _check_bin_topk_case(name, q, corpus, n_valid, k, bins) -> float:
+def _check_bin_topk_case(name, q, corpus, n_valid, k, bins, carry=None) -> float:
     """Kernel vs plain on one input; returns the max score difference.
+    ``carry(q, corpus, n_valid, bins)`` is the kernel's wrapper (default
+    K1's ``bin_topk_carry``).
 
     Tolerance: the kernel's scores lie within ``score_tolerance`` of the
     twin's
@@ -141,7 +147,7 @@ def _check_bin_topk_case(name, q, corpus, n_valid, k, bins) -> float:
 
     steal = K.steal_bits_for(corpus.shape[0], bins)
     tol = 2.0 * 2.0 ** (steal - 22) + K.score_tolerance(corpus.dtype, q.shape[1])
-    packed_kernel = K.bin_topk_carry(q, corpus, n_valid, bins)
+    packed_kernel = (carry or K.bin_topk_carry)(q, corpus, n_valid, bins)
     packed_plain = K.bin_topk_carry_plain(q, corpus, n_valid, bins, steal)
     torch.cuda.synchronize()
     ks, ki = K.unpack_topk(packed_kernel, k=k, steal_bits=steal, bins=bins)
@@ -175,42 +181,58 @@ def _check_bin_topk_case(name, q, corpus, n_valid, k, bins) -> float:
     return err
 
 
-def check_bin_topk(device, dtype=torch.bfloat16) -> dict:
-    from lean_explore_tpu_torch.ops import bin_topk as K
+# K1's (and K4's) serving shape: 300,000 valid rows of a 300,032 x 1024
+# corpus (padded to 512 rows), B = 128, k = 1000, bins = 4096.
+BIN_N_REAL, BIN_DIM, BIN_BATCH, BIN_K, BIN_BINS = 300_000, 1024, 128, 1000, 4096
+# Planted exact matches: one mid-corpus, one in the partial final
+# super-tile; queries 0 and 1 must find them first.
+BIN_PLANTED = (123_457, BIN_N_REAL - 5)
 
-    f32 = dtype == torch.float32
-    gen = torch.Generator(device=device).manual_seed(30 if f32 else 0)
-    n_real, dim, batch, k, bins = 300_000, 1024, 128, 1000, 4096
+
+def bin_topk_inputs(device, dtype) -> tuple:
+    """(q, corpus, cases) of K1's phase-3 check, from the same seed each
+    call: the serving shape with the planted matches, B = 1, a partial
+    final super-tile with the fewest stolen bits that hold it, and a corpus
+    whose real rows all score below its pad rows (padding never selected).
+    Each case is (name, queries, corpus, n_valid)."""
+    gen = torch.Generator(device=device).manual_seed(30 if dtype == torch.float32 else 0)
+    n_real, dim, batch = BIN_N_REAL, BIN_DIM, BIN_BATCH
     n_pad = -(-n_real // 512) * 512
     corpus = torch.zeros(n_pad, dim, dtype=dtype, device=device)
     corpus[:n_real] = _unit_rows(n_real, dim, gen, device, dtype)
     q = _unit_rows(batch, dim, gen, device, dtype)
-    # Planted exact matches: one mid-corpus, one in the partial final
-    # super-tile; each must come back first.
-    q[0] = corpus[123_457]
-    q[1] = corpus[n_real - 5]
-
-    err = _check_bin_topk_case("serving shape", q, corpus, n_real, k, bins)
-    _, rows = K.bin_topk(q, corpus, n_real, k=k, bins=bins)
-    if int(rows[0, 0]) != 123_457 or int(rows[1, 0]) != n_real - 5:
-        raise AssertionError("planted exact matches were not ranked first")
-    err = max(err, _check_bin_topk_case("B=1", q[:1].contiguous(), corpus, n_real, k, bins))
-    # Partial final super-tile with the fewest stolen bits that hold it.
+    q[0] = corpus[BIN_PLANTED[0]]
+    q[1] = corpus[BIN_PLANTED[1]]
     n_part = 3 * 4096 + 1024
-    err = max(
-        err,
-        _check_bin_topk_case(
-            "partial final super-tile", q, corpus[:n_part], n_part, k, bins
-        ),
-    )
-    # Padding never selected: every real score is negative, pad rows score 0.
     n_small, n_valid_small = 8192, 5000
     neg = torch.zeros(n_small, dim, dtype=dtype, device=device)
     neg[:n_valid_small] = -_unit_rows(n_valid_small, dim, gen, device, dtype).abs()
     pos = _unit_rows(batch, dim, gen, device, dtype).abs()
-    err = max(
-        err, _check_bin_topk_case("padding never selected", pos, neg, n_valid_small, k, bins)
-    )
+    return q, corpus, [
+        ("serving shape", q, corpus, n_real),
+        ("B=1", q[:1].contiguous(), corpus, n_real),
+        ("partial final super-tile", q, corpus[:n_part], n_part),
+        ("padding never selected", pos, neg, n_valid_small),
+    ]
+
+
+def expect_planted(name: str, rows: torch.Tensor) -> None:
+    if (int(rows[0, 0]), int(rows[1, 0])) != BIN_PLANTED:
+        raise AssertionError(f"{name}: planted exact matches were not ranked first")
+
+
+def check_bin_topk(device, dtype=torch.bfloat16) -> dict:
+    from lean_explore_tpu_torch.ops import bin_topk as K
+
+    f32 = dtype == torch.float32
+    n_real, dim, batch, k, bins = BIN_N_REAL, BIN_DIM, BIN_BATCH, BIN_K, BIN_BINS
+    q, corpus, cases = bin_topk_inputs(device, dtype)
+    n_pad = corpus.shape[0]
+    err = 0.0
+    for case, cq, ccorpus, n_valid in cases:
+        err = max(err, _check_bin_topk_case(case, cq, ccorpus, n_valid, k, bins))
+    _, rows = K.bin_topk(q, corpus, n_real, k=k, bins=bins)
+    expect_planted("bin_topk", rows)
 
     reps = 20
     ms = cuda_ms(lambda: K.bin_topk_carry(q, corpus, n_real, bins), reps)
@@ -262,6 +284,186 @@ def check_bin_topk(device, dtype=torch.bfloat16) -> dict:
         "bound_by": b_by,
         "library_ms": library_ms,
     }
+
+
+# ----------------------------------------------------------------------
+# Phase 3: K4 (bin_topk_pipelined) against K1's kernel and the plain version
+# ----------------------------------------------------------------------
+
+PIPELINE_BUFFERS = (2, 3, 4)
+# Launches of K4 at 2 stages per shape in the repeated check: a fault of the
+# ring's protocol may change a carry in only some launches (without the
+# consumers' proxy fence it did; scripts/stress_torch_pipelined.py counts
+# them).
+PIPELINE_REPEATS = 200
+
+
+def check_bin_topk_pipelined(device, dtype=torch.bfloat16) -> dict:
+    """K4's carry equals K1's kernel carry bit for bit at K1's four cases
+    (for 2, 3 and 4 ring stages) and passes K1's tolerance check against
+    the plain twin, and in each of PIPELINE_REPEATS launches at 2 stages at
+    the serving shape and at one super-tile; at the JAX TPU test's case (8192 x 256, B = 16,
+    n_valid = 8000, k = 64, bins = 2048) its scores and rows equal K1's.
+    Then times it at the serving shape beside K1 (K1, K4 by stages, K1),
+    the twin and the library call, and checks that its wrapper counted
+    every call of this check."""
+    from lean_explore_tpu_torch.ops import bin_topk as K
+    from lean_explore_tpu_torch.ops import bin_topk_pipelined as K4
+
+    f32 = dtype == torch.float32
+    name = "bin_topk_pipelined_f32" if f32 else "bin_topk_pipelined"
+    n_real, dim, batch, k, bins = BIN_N_REAL, BIN_DIM, BIN_BATCH, BIN_K, BIN_BINS
+    wrapper = K4.bin_topk_pipelined_carry
+    wrapper.launches = 0
+    calls = 0
+    q, corpus, cases = bin_topk_inputs(device, dtype)
+    n_pad = corpus.shape[0]
+    err = 0.0
+    for case, cq, ccorpus, n_valid in cases:
+        want = K.bin_topk_carry(cq, ccorpus, n_valid, bins)
+        for n_buffers in PIPELINE_BUFFERS:
+            got = wrapper(cq, ccorpus, n_valid, bins, n_buffers)
+            calls += 1
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+                raise AssertionError(
+                    f"{name} {case}, n_buffers={n_buffers}: {diff} carry words "
+                    f"differ from K1's kernel"
+                )
+        err = max(
+            err,
+            _check_bin_topk_case(f"{name} {case}", cq, ccorpus, n_valid, k, bins, wrapper),
+        )
+        calls += 1
+    log(f"  {name}: carry == K1's kernel carry bit for bit at the 4 cases, "
+        f"n_buffers {PIPELINE_BUFFERS}")
+    # The serving shape, and its first 65,536 rows as one super-tile (bins =
+    # rows, so every product reaches the carry), at the shortest ring.
+    repeats = (("serving shape", corpus, n_real, bins),
+               ("one super-tile", corpus[:65_536], 65_536, 65_536))
+    for case, ccorpus, n_valid, cbins in repeats:
+        want = K.bin_topk_carry(q, ccorpus, n_valid, cbins).view(torch.int32)
+        differing = 0
+        for _ in range(PIPELINE_REPEATS):
+            got = wrapper(q, ccorpus, n_valid, cbins, PIPELINE_BUFFERS[0])
+            calls += 1
+            differing += int(not torch.equal(got.view(torch.int32), want))
+        if differing:
+            raise AssertionError(
+                f"{name} {case}, n_buffers={PIPELINE_BUFFERS[0]}: {differing} of "
+                f"{PIPELINE_REPEATS} launches differ from K1's kernel carry"
+            )
+    log(f"  {name}: {PIPELINE_REPEATS} launches each at the serving shape and at "
+        f"one super-tile of 65,536 rows, n_buffers={PIPELINE_BUFFERS[0]}: every "
+        f"carry == K1's")
+
+    gen = torch.Generator(device=device).manual_seed(40 if f32 else 10)
+    small = _unit_rows(8192, 256, gen, device, dtype)
+    small_q = _unit_rows(16, 256, gen, device, torch.float32)
+    s4, r4 = K4.bin_topk_pipelined(small_q, small, 8000, k=64, bins=2048, tile_rows=512)
+    calls += 1
+    s1, r1 = K.bin_topk(small_q, small, 8000, k=64, bins=2048)
+    if not (torch.equal(s4, s1) and torch.equal(r4, r1)):
+        raise AssertionError(f"{name}: the JAX TPU test's case differs from K1's top-k")
+    log(f"  {name}: 8192 x 256, B=16, n_valid=8000, k=64, bins=2048: scores and "
+        f"rows == K1's")
+
+    reps = 20
+    carry_k1 = lambda: K.bin_topk_carry(q, corpus, n_real, bins)  # noqa: E731
+    k1_before = cuda_ms(carry_k1, reps)
+    by_buffers = {}
+    for n_buffers in PIPELINE_BUFFERS:
+        by_buffers[n_buffers] = cuda_ms(
+            lambda: wrapper(q, corpus, n_real, bins, n_buffers), reps
+        )
+        calls += reps + 1
+    k1_after = cuda_ms(carry_k1, reps)
+    with_epilogue_ms = cuda_ms(
+        lambda: K4.bin_topk_pipelined(q, corpus, n_real, k=k, bins=bins), reps
+    )
+    calls += reps + 1
+    steal = K.steal_bits_for(n_pad, bins)
+    plain_ms = cuda_ms(lambda: K.bin_topk_carry_plain(q, corpus, n_real, bins, steal), 3)
+    library_ms = cuda_ms(lambda: torch.topk(q @ corpus[:n_real].T, k, dim=1), reps)
+    if wrapper.launches != calls:
+        raise AssertionError(
+            f"{name}: the wrapper counted {wrapper.launches} launches, this check "
+            f"made {calls}"
+        )
+    size = corpus.element_size()
+    bytes_moved = n_real * dim * size + batch * dim * size + bins * batch * 4
+    flops = 2.0 * n_real * batch * dim
+    b_ms, b_by = bound_ms(bytes_moved, flops, TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    groups = K.supertile_groups(device, n_pad, batch, bins)
+    product = "F32Product" if f32 else "Bf16Product"
+    per_launch = [f"bin_carry_pipelined_kernel<{product}>"] + (
+        ["max_over_groups_kernel"] if groups > 1 else []
+    )
+    ms = by_buffers[3]
+    log(
+        f"  {name} carry kernel by n_buffers "
+        f"{ {n: round(t, 4) for n, t in by_buffers.items()} } ms (with top-k "
+        f"epilogue {with_epilogue_ms:.4f} ms at 3), K1 in turns {k1_before:.4f} "
+        f"and {k1_after:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"torch.topk(q @ corpus.T) {library_ms:.4f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by} ({bytes_moved / 1e6:.1f} MB); {calls} launches in this check; "
+        f"one launch runs {per_launch} with groups={groups}, "
+        f"{K4.ring_smem_bytes(3)} B of shared memory at 3 stages"
+    )
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "lean_explore_tpu_torch/csrc/bin_topk_pipelined.cu",
+        "replaces": "lean_explore_tpu/ops/pallas_retrieval.py:571",
+        "launches": None,
+        "check_launches": calls,
+        "kernels_per_launch": per_launch,
+        "groups": groups,
+        "max_abs_err": err,
+        "ms": ms,
+        "ms_by_n_buffers": {str(n): t for n, t in by_buffers.items()},
+        "with_epilogue_ms": with_epilogue_ms,
+        "k1_ms": [k1_before, k1_after],
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": library_ms,
+    }
+
+
+def run_pipelined_path(device, kernels, card) -> None:
+    """K4's path: ``bin_topk_pipelined`` called once through its entry point
+    at the serving shape, bf16 and then float32, with every launch count
+    set to 0 just before and read just after. No path of phases 4-5 routes
+    to K4 (the JAX package has no route to its TPU kernel either), so it
+    launches 0 times there: each of those paths fails if a kernel other
+    than its own launches."""
+    from lean_explore_tpu_torch.ops import bin_topk as K
+    from lean_explore_tpu_torch.ops import bin_topk_pipelined as K4
+
+    by_name = {k["name"]: k for k in kernels}
+    for dtype, name in ((torch.bfloat16, "bin_topk_pipelined"),
+                        (torch.float32, "bin_topk_pipelined_f32")):
+        q, corpus, _ = bin_topk_inputs(device, dtype)
+        with CountLaunches() as launched:
+            scores, rows = K4.bin_topk_pipelined(q, corpus, BIN_N_REAL, k=BIN_K, bins=BIN_BINS)
+            torch.cuda.synchronize()
+        expect_launches(name, launched.counts, "bin_topk_pipelined", 1)
+        want_s, want_r = K.bin_topk(q, corpus, BIN_N_REAL, k=BIN_K, bins=BIN_BINS)
+        if not (torch.equal(scores, want_s) and torch.equal(rows, want_r)):
+            raise AssertionError(f"{name}: top-k at the serving shape differs from K1's")
+        expect_planted(name, rows)
+        if scores.shape != (BIN_BATCH, BIN_K) or not bool(torch.isfinite(scores).all()):
+            raise AssertionError(f"{name}: scores {tuple(scores.shape)} not finite")
+        by_name[name]["launches"] = launched.counts["bin_topk_pipelined"]
+        by_name[name]["serving_launches"] = 0
+        log(
+            f"  {name}: top-{BIN_K} of {BIN_BATCH} queries over {tuple(corpus.shape)} "
+            f"== K1's, planted matches first; launches {launched.counts}; 0 on the "
+            f"paths of phases 4-5, which fail on any other kernel's launch; {card}"
+        )
+        del q, corpus
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -845,6 +1047,8 @@ def main() -> int:
         kernels = [
             check_bin_topk(device),
             check_bin_topk(device, torch.float32),
+            check_bin_topk_pipelined(device),
+            check_bin_topk_pipelined(device, torch.float32),
             check_bin_topk_int8(device),
             check_windowed(device),
             check_windowed(device, torch.float32),
@@ -854,6 +1058,9 @@ def main() -> int:
             *check_flash_backward(device),
         ]
         torch.cuda.empty_cache()
+
+    with Phase("3b. bin_topk_pipelined through its entry point at the serving shape"):
+        run_pipelined_path(device, kernels, card)
 
     if not args.kernels:
         with Phase("serving paths at full width"):
@@ -1128,6 +1335,7 @@ def launch_counters() -> dict:
     from lean_explore_tpu_torch.ops import (
         bin_topk,
         bin_topk_int8,
+        bin_topk_pipelined,
         flash_attention,
         windowed,
     )
@@ -1135,6 +1343,7 @@ def launch_counters() -> dict:
     return {
         "bin_topk": bin_topk.bin_topk_carry,
         "bin_topk_int8": bin_topk_int8.bin_topk_int8_carry,
+        "bin_topk_pipelined": bin_topk_pipelined.bin_topk_pipelined_carry,
         "windowed_scores": windowed.fused_scores_wmax,
         "flash_attention": flash_attention.attention_flash,
         "flash_attention_bwd_dq": flash_attention.attention_flash_bwd_dq,

@@ -1,11 +1,14 @@
 // Building blocks shared by the port's tiled-product kernels (bin_topk.cu,
-// bin_topk_int8.cu, windowed_scores.cu, flash_attention.cu).
+// bin_topk_int8.cu, bin_topk_pipelined.cu, windowed_scores.cu and, through
+// flash_tiles.cuh, the flash-attention kernels).
 //
 // Each block computes 64 x 64 tiles of (corpus rows) x (queries) with four
 // warps of 32 x 32. Both operands are row-major with the depth contiguous
 // (corpus [N, D], queries [B, D]), so the depth is walked in stages of 128
 // bytes: 64 bf16, 128 int8 or 32 f32 values. Double-buffered cp.async
-// copies each stage into shared memory and ldmatrix feeds it to mma.sync.
+// copies each stage into shared memory (bin_topk_pipelined.cu fills each
+// stage with two TMA tile copies in the 128-byte swizzled layout) and
+// ldmatrix feeds it to mma.sync.
 // The fragment layouts of m16n8k16 bf16, m16n8k32 s8 and m16n8k8 tf32 are
 // the same byte for byte (each 32-bit register holds 4 bytes of one row:
 // two bf16, four int8 or one f32), so one loader and one ldmatrix walk
@@ -169,8 +172,15 @@ __device__ __forceinline__ void load_stage(uint8_t* sa, uint8_t* sb, const uint8
   }
 }
 
-// Accumulates one stage's products into this warp's 32 x 32 fragment.
-template <class P>
+// The cp.async stage tile's layout: byte offset of (row r, byte c) with
+// rows padded to LDS bytes.
+struct PaddedRows {
+  __device__ static __forceinline__ int offset(int r, int c) { return r * LDS + c; }
+};
+
+// Accumulates one stage's products into this warp's 32 x 32 fragment. L
+// maps (row, 16-byte aligned byte column) of a stage tile to its byte offset.
+template <class P, class L = PaddedRows>
 __device__ __forceinline__ void mma_stage(typename P::Acc (&acc)[2][4][4], const uint8_t* a_tile,
                                           const uint8_t* b_tile, int warp_m, int warp_n,
                                           int lane) {
@@ -181,14 +191,14 @@ __device__ __forceinline__ void mma_stage(typename P::Acc (&acc)[2][4][4], const
     for (int mi = 0; mi < 2; ++mi) {
       const int r = warp_m * 32 + mi * 16 + (lane & 15);
       const int c = kk + (lane >> 4) * 16;
-      ldmatrix_x4(a_frag[mi], a_tile + r * LDS + c);
+      ldmatrix_x4(a_frag[mi], a_tile + L::offset(r, c));
     }
     uint32_t b_frag[2][4];
 #pragma unroll
     for (int nj = 0; nj < 2; ++nj) {
       const int r = warp_n * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8;
       const int c = kk + ((lane >> 3) & 1) * 16;
-      ldmatrix_x4(b_frag[nj], b_tile + r * LDS + c);
+      ldmatrix_x4(b_frag[nj], b_tile + L::offset(r, c));
     }
     if constexpr (P::kSplit) {
       uint32_t a_hi[2][4], a_lo[2][4], b_hi[2][4], b_lo[2][4];
@@ -219,6 +229,91 @@ __device__ __forceinline__ void mma_stage(typename P::Acc (&acc)[2][4][4], const
   }
 }
 
+// The carry's pieces that the two carry kernels share (bin_carry_kernel
+// below, fed by cp.async, and bin_carry_pipelined_kernel of
+// bin_topk_pipelined.cu, fed by a TMA ring): the super-tiles of a block,
+// the fold of one super-tile and the store.
+
+// Super-tiles [p_begin, p_end) of group `group` whose slice of bins
+// [s0, s0 + BM) lies inside the corpus of N rows.
+__device__ __forceinline__ void group_supertiles(int N, int bins, int s0, int group,
+                                                 int tiles_per_group, int& p_begin,
+                                                 int& p_end) {
+  const int n_super = (N + bins - 1) / bins;
+  p_begin = group * tiles_per_group;
+  p_end = min(p_begin + tiles_per_group, n_super);
+  while (p_end > p_begin && (long long)(p_end - 1) * bins + s0 >= N) --p_end;
+}
+
+template <class P>
+__device__ __forceinline__ void zero_fragments(typename P::Acc (&acc)[2][4][4],
+                                               float (&carry)[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0;
+        carry[i][j][e] = 0.0f;
+      }
+}
+
+// Folds super-tile p's scores (this warp's accumulators, rows
+// p * bins + s0 + frag_row) into the packed running max, and zeroes the
+// accumulators for the next super-tile.
+template <class P>
+__device__ __forceinline__ void fold_supertile(float (&carry)[2][4][4],
+                                               typename P::Acc (&acc)[2][4][4], uint32_t p,
+                                               int bins, int s0, int n_valid,
+                                               uint32_t low_mask,
+                                               const float* __restrict__ row_scales,
+                                               const float (&qs)[4][2], int warp_m, int lane) {
+  const long long row0 = (long long)p * bins + s0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int eh = 0; eh < 2; ++eh) {
+      const int m = frag_row(warp_m, lane, mi, eh * 2);
+      float rs = 1.0f;
+      if constexpr (P::kScaled) rs = row_scales[row0 + m];
+      const bool valid = row0 + m < n_valid;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int el = 0; el < 2; ++el) {
+          const int e = eh * 2 + el;
+          float s;
+          if constexpr (P::kScaled) {
+            s = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][e]), rs), qs[ni][el]);
+          } else {
+            s = acc[mi][ni][e];
+          }
+          const float shifted = valid ? fmaxf(__fadd_rn(s, PACK_SHIFT), PACK_FLOOR) : 0.0f;
+          const uint32_t bits = (__float_as_uint(shifted) & ~low_mask) | p;
+          carry[mi][ni][e] = fmaxf(carry[mi][ni][e], __uint_as_float(bits));
+          acc[mi][ni][e] = 0;
+        }
+    }
+}
+
+// Writes this thread's carry to dst[s0 .. s0 + BM)[q0 .. q0 + BN) of a
+// [bins, B] carry, query columns < B only.
+__device__ __forceinline__ void store_carry(float* __restrict__ dst,
+                                            const float (&carry)[2][4][4], int s0, int q0,
+                                            int B, int warp_m, int warp_n, int lane) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = frag_row(warp_m, lane, mi, e);
+        const int n = q0 + frag_col(warp_n, lane, ni, e);
+        if (n < B) dst[(long long)(s0 + m) * B + n] = carry[mi][ni][e];
+      }
+}
+
 // Packed bin-max carry. Grid: x = bin slice (bins / BM), y = query block
 // (ceil(B / BN)), z = super-tile group. Block (x, y, z) owns bins
 // [s0, s0 + BM) for queries [q0, q0 + BN), loops over the super-tiles of
@@ -245,11 +340,8 @@ bin_carry_kernel(const uint8_t* __restrict__ q,        // [B, row_bytes]
   const int s0 = blockIdx.x * BM;
   const int q0 = blockIdx.y * BN;
 
-  // Super-tiles of this block: those whose slice lies inside the corpus.
-  const int n_super = (N + bins - 1) / bins;
-  const int p_begin = blockIdx.z * tiles_per_group;
-  int p_end = min(p_begin + tiles_per_group, n_super);
-  while (p_end > p_begin && (long long)(p_end - 1) * bins + s0 >= N) --p_end;
+  int p_begin, p_end;
+  group_supertiles(N, bins, s0, blockIdx.z, tiles_per_group, p_begin, p_end);
   const int k_steps = row_bytes / STAGE_BYTES;
   const int total = (p_end > p_begin) ? (p_end - p_begin) * k_steps : 0;
   const uint32_t low_mask = (1u << steal_bits) - 1u;
@@ -267,15 +359,7 @@ bin_carry_kernel(const uint8_t* __restrict__ q,        // [B, row_bytes]
 
   typename P::Acc acc[2][4][4];
   float carry[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0;
-        carry[i][j][e] = 0.0f;
-      }
+  zero_fragments<P>(acc, carry);
 
   auto load = [&](int t, int buf) {
     const int p = p_begin + t / k_steps;
@@ -298,50 +382,13 @@ bin_carry_kernel(const uint8_t* __restrict__ q,        // [B, row_bytes]
     __syncthreads();
 
     if ((t % k_steps) == k_steps - 1) {
-      // Fold this super-tile's scores into the packed running max.
-      const uint32_t p = (uint32_t)(p_begin + t / k_steps);
-      const long long row0 = (long long)p * bins + s0;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int eh = 0; eh < 2; ++eh) {
-          const int m = frag_row(warp_m, lane, mi, eh * 2);
-          float rs = 1.0f;
-          if constexpr (P::kScaled) rs = row_scales[row0 + m];
-          const bool valid = row0 + m < n_valid;
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int el = 0; el < 2; ++el) {
-              const int e = eh * 2 + el;
-              float s;
-              if constexpr (P::kScaled) {
-                s = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][e]), rs), qs[ni][el]);
-              } else {
-                s = acc[mi][ni][e];
-              }
-              const float shifted =
-                  valid ? fmaxf(__fadd_rn(s, PACK_SHIFT), PACK_FLOOR) : 0.0f;
-              const uint32_t bits = (__float_as_uint(shifted) & ~low_mask) | p;
-              carry[mi][ni][e] = fmaxf(carry[mi][ni][e], __uint_as_float(bits));
-              acc[mi][ni][e] = 0;
-            }
-        }
+      fold_supertile<P>(carry, acc, (uint32_t)(p_begin + t / k_steps), bins, s0, n_valid,
+                        low_mask, row_scales, qs, warp_m, lane);
     }
   }
   cp_async_wait_all();
 
-  float* dst = out + (long long)blockIdx.z * bins * B;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = frag_row(warp_m, lane, mi, e);
-        const int n = q0 + frag_col(warp_n, lane, ni, e);
-        if (n < B) dst[(long long)(s0 + m) * B + n] = carry[mi][ni][e];
-      }
+  store_carry(out + (long long)blockIdx.z * bins * B, carry, s0, q0, B, warp_m, warp_n, lane);
 }
 
 // out[i] = max over g of partial[g][i]; every value is a non-negative packed float.
@@ -354,6 +401,15 @@ __global__ void max_over_groups_kernel(const float* __restrict__ partial,
     for (int g = 1; g < groups; ++g) m = fmaxf(m, partial[(long long)g * size + i]);
     out[i] = m;
   }
+}
+
+// out [bins, B] = the max over the `groups` partial carries in `partial`.
+inline void launch_max_over_groups(const void* partial, void* out, int bins, int B, int groups,
+                                   cudaStream_t s) {
+  const long long size = (long long)bins * B;
+  const int blocks = (int)((size + 255) / 256);
+  max_over_groups_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(partial),
+                                                static_cast<float*>(out), size, groups);
 }
 
 // Launches the carry kernel over `groups` slices of the super-tiles and,
@@ -373,12 +429,7 @@ int launch_bin_carry(const void* q, const void* corpus, const void* q_scales,
       static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus),
       static_cast<const float*>(q_scales), static_cast<const float*>(row_scales), carry_out,
       B, N, row_bytes, n_valid, bins, steal_bits, tiles_per_group);
-  if (groups > 1) {
-    const long long size = (long long)bins * B;
-    const int blocks = (int)((size + 255) / 256);
-    max_over_groups_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(partial),
-                                                  static_cast<float*>(out), size, groups);
-  }
+  if (groups > 1) launch_max_over_groups(partial, out, bins, B, groups, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,16 +1,19 @@
-"""Do the port's bf16 retrieval kernels and its flash-attention forward
-give the same bits as another tree's build of them? On one GPU.
+"""Do the port's retrieval kernels and its flash-attention forward give
+the same bits as another tree's build of them? On one GPU.
 
     python3 scripts/compare_torch_kernel_builds.py --other unpacked/parent
 
-Builds ``csrc/bin_topk.cu``, ``csrc/windowed_scores.cu`` and
-``csrc/flash_attention.cu`` of this tree and of the tree at ``--other`` (for
-example the parent commit, unpacked with ``git archive`` into a directory
-that .gitignore lists) with the port's nvcc flags, each into its own
-directory under ``build/compare_builds/``, loads both with ctypes and calls
-entry points whose C interface is the same in both on the same inputs:
-``bin_topk_carry`` and ``windowed_scores`` (bf16) at the serving shape
-(300,000 valid rows of a 300,032 x 1024 unit-row corpus, B = 128,
+Builds ``csrc/bin_topk.cu``, ``csrc/bin_topk_int8.cu``,
+``csrc/windowed_scores.cu``, ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu`` (registers only) of this tree and of the
+tree at ``--other`` (for example the parent commit, unpacked with
+``git archive`` into a directory that .gitignore lists) with the port's
+nvcc flags, each into its own directory under ``build/compare_builds/``,
+loads both with ctypes and calls entry points whose C interface is the same
+in both on the same inputs: ``bin_topk_carry`` (bf16), ``bin_topk_carry_f32``
+(the same corpus in float32), ``bin_topk_int8_carry`` (the same corpus and
+queries quantized per row) and ``windowed_scores`` (bf16) at the serving
+shape (300,000 valid rows of a 300,032 x 1024 unit-row corpus, B = 128,
 bins = 4096, window 8) and two small shapes, and ``flash_attention_fwd``
 (bf16) and ``flash_attention_fwd_f32`` (the forward without lse) at the
 serving shape (B = 64, T = 512, 16/8 heads, DH 128, ragged lengths) and a
@@ -30,7 +33,9 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-KERNELS = ("bin_topk", "windowed_scores", "flash_attention")
+KERNELS = (
+    "bin_topk", "bin_topk_int8", "windowed_scores", "flash_attention", "flash_attention_bwd",
+)
 # (batch, seq, nq, nkv, dh) of the flash-attention forward
 FLASH_SHAPES = ((64, 512, 16, 8, 128), (3, 256, 4, 2, 64))
 # (n_rows, n_valid, dim, batch, bins, window)
@@ -68,8 +73,14 @@ def build(csrc: Path, out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
 
 def _configure(kernel: str, lib: ctypes.CDLL) -> None:
     if kernel == "bin_topk":
-        fns = [lib.bin_topk_carry]
-        fns[0].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fns = [lib.bin_topk_carry, lib.bin_topk_carry_f32]
+        for fn in fns:
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    elif kernel == "bin_topk_int8":
+        fns = [lib.bin_topk_int8_carry]
+        fns[0].argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    elif kernel == "flash_attention_bwd":
+        return  # built for its registers only
     elif kernel == "windowed_scores":
         fns = [lib.windowed_scores]
         fns[0].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -92,13 +103,30 @@ def run_bin_topk(lib, q, corpus, n_valid, bins) -> torch.Tensor:
     n, dim = corpus.shape
     out, partial, groups = carry_buffers(corpus, q.shape[0], bins)
     stream = torch.cuda.current_stream().cuda_stream
-    status = lib.bin_topk_carry(
+    fn = lib.bin_topk_carry if corpus.dtype == torch.bfloat16 else lib.bin_topk_carry_f32
+    status = fn(
         q.data_ptr(), corpus.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None, q.shape[0], n, dim,
         n_valid, bins, steal_bits_for(n, bins), groups, stream,
     )
     if status != 0:
         raise RuntimeError(f"bin_topk_carry: cudaError {status}")
+    return out
+
+
+def run_bin_topk_int8(lib, q_codes, q_scales, codes, scales, n_valid, bins) -> torch.Tensor:
+    from lean_explore_tpu_torch.ops.bin_topk import carry_buffers, steal_bits_for
+
+    n, dim = codes.shape
+    out, partial, groups = carry_buffers(codes, q_codes.shape[0], bins)
+    status = lib.bin_topk_int8_carry(
+        q_codes.data_ptr(), q_scales.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        out.data_ptr(), partial.data_ptr() if partial is not None else None,
+        q_codes.shape[0], n, dim, n_valid, bins, steal_bits_for(n, bins), groups,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"bin_topk_int8_carry: cudaError {status}")
     return out
 
 
@@ -175,6 +203,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    from lean_explore_tpu_torch.ops.quant import quantize_rows_device
 
     results, ok = [], True
     for n, n_valid, dim, batch, bins, window in SHAPES:
@@ -184,14 +213,21 @@ def main() -> int:
         corpus[n_valid:] = 0
         q = torch.randn(batch, dim, generator=gen, device="cuda")
         q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        for kernel in ("bin_topk", "windowed_scores"):
-            outs = {}
-            for tag, libs in builds.items():
-                lib = libs[kernel][0]
-                if kernel == "bin_topk":
-                    outs[tag] = run_bin_topk(lib, q, corpus, n_valid, bins)
-                else:
-                    outs[tag] = run_windowed(lib, q, corpus, n_valid, window)
+        q8, q8_scales = quantize_rows_device(q.float())
+        c8, c8_scales = quantize_rows_device(corpus.float())
+        runs = {
+            "bin_topk": lambda lib: run_bin_topk(lib, q, corpus, n_valid, bins),
+            "bin_topk_f32": lambda lib: run_bin_topk(
+                lib, q.float(), corpus.float(), n_valid, bins
+            ),
+            "bin_topk_int8": lambda lib: run_bin_topk_int8(
+                lib, q8, q8_scales, c8, c8_scales, n_valid, bins
+            ),
+            "windowed_scores": lambda lib: run_windowed(lib, q, corpus, n_valid, window),
+        }
+        for kernel, run in runs.items():
+            source = "bin_topk" if kernel == "bin_topk_f32" else kernel
+            outs = {tag: run(libs[source][0]) for tag, libs in builds.items()}
             torch.cuda.synchronize()
             same = torch.equal(
                 outs["this"].view(torch.int32), outs["other"].view(torch.int32)

@@ -12,6 +12,8 @@ of unit rows of depth D (2 * D * 2^-24), plus, for the packed carry, two
 packing quanta (2^steal_bits ulps of [2, 4), 2^-22 each) (derivation in
 chip_smoke.py). The int8 kernel's products are exact integers and its f32
 steps are rounded as its twin's, so its carry equals the twin's bit for bit.
+The ring-fed carry kernel (K4) runs K1's products in K1's order, so its
+carry equals K1's kernel carry bit for bit.
 The float32 kernels (3xTF32) are held to 3 * 2^-22 + 7 * D * 2^-24 (the
 split's error and truncating tensor-core sums; ops.bin_topk.score_tolerance),
 and flash attention on valid rows to ops.flash_attention.kernel_tolerance:
@@ -25,6 +27,7 @@ import torch
 
 from lean_explore_tpu_torch.ops import bin_topk as K
 from lean_explore_tpu_torch.ops import bin_topk_int8 as K8
+from lean_explore_tpu_torch.ops import bin_topk_pipelined as K4
 from lean_explore_tpu_torch.ops import flash_attention as FA
 from lean_explore_tpu_torch.ops import windowed as W
 from lean_explore_tpu_torch.ops.quant import quantize_rows_device
@@ -260,6 +263,88 @@ def test_f32_dense_index_search_takes_the_kernel(cuda):
     assert K.bin_topk_carry.launches == before + 1
     assert W.fused_scores_wmax.launches == before_w + 1
     assert ids[:, 0].tolist() == [0, 1, 2, 3, 4] == ids_w[:, 0].tolist()
+
+
+CARRY_CASES = [
+    (8192 + 4096, 8192 + 4000, 37, 4096),  # ragged batch, partial super-tile
+    (4096 * 5, 4096 * 5, 1, 4096),  # one query, whole super-tiles
+    (2048, 1500, 128, 1024),  # fewer super-tiles than groups
+    (64 * 9, 64 * 9, 200, 64),  # two query blocks and a partial one
+]
+
+
+@pytest.mark.parametrize("n_buffers", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,n_valid,batch,bins", CARRY_CASES)
+def test_pipelined_carry_equals_k1(cuda, n, n_valid, batch, bins, dtype, n_buffers):
+    """K4's carry is K1's kernel carry, bit for bit, at test_carry_matches_plain's
+    cases, bf16 and f32, for 2, 3 and 4 ring stages."""
+    gen = torch.Generator(device=cuda).manual_seed(n + batch + 5)
+    corpus = _unit_rows(n, 256, gen, cuda, dtype)
+    queries = _unit_rows(batch, 256, gen, cuda, dtype)
+    before = K4.bin_topk_pipelined_carry.launches
+    got = K4.bin_topk_pipelined_carry(queries, corpus, n_valid, bins, n_buffers)
+    assert K4.bin_topk_pipelined_carry.launches == before + 1
+    want = K.bin_topk_carry(queries, corpus, n_valid, bins)
+    torch.cuda.synchronize()
+    assert got.shape == (bins, batch)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pipelined_carry_equals_k1_in_every_repeated_launch(cuda, dtype):
+    """A fault of the ring's protocol (the refill overtaking the consumers'
+    reads) changes a carry in only some launches: 200 launches at the
+    shortest ring over one super-tile (bins = rows, so every product
+    reaches the carry) must each equal K1's kernel carry."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    corpus = _unit_rows(16384, 1024, gen, cuda, dtype)
+    queries = _unit_rows(128, 1024, gen, cuda, dtype)
+    want = K.bin_topk_carry(queries, corpus, 16384, 16384).view(torch.int32)
+    differing = 0
+    for _ in range(200):
+        got = K4.bin_topk_pipelined_carry(queries, corpus, 16384, 16384, 2)
+        differing += int(not torch.equal(got.view(torch.int32), want))
+    assert differing == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pipelined_top_k_equals_k1_at_the_tpu_tests_case(cuda, dtype):
+    """tests/ops/test_dense.py's hardware case (8192 x 256, B = 16,
+    n_valid = 8000, k = 64, bins = 2048): scores and rows equal K1's."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    corpus = _unit_rows(8192, 256, gen, cuda, dtype)
+    queries = _unit_rows(16, 256, gen, cuda, torch.float32)
+    before = K4.bin_topk_pipelined_carry.launches
+    got_s, got_i = K4.bin_topk_pipelined(queries, corpus, 8000, k=64, bins=2048, tile_rows=512)
+    assert K4.bin_topk_pipelined_carry.launches == before + 1
+    want_s, want_i = K.bin_topk(queries, corpus, 8000, k=64, bins=2048)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
+
+
+def test_pipelined_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    corpus = torch.zeros(512, 64, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(2, 64, dtype=torch.bfloat16, device=cuda)
+    before = K4.bin_topk_pipelined_carry.launches
+    with pytest.raises(TypeError):
+        K4.bin_topk_pipelined_carry(q.float(), corpus, 512, 256)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        K4.bin_topk_pipelined_carry(q.half(), corpus.half(), 512, 256)
+    with pytest.raises(ValueError, match="multiples"):
+        K4.bin_topk_pipelined_carry(q, corpus[:500], 500, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.bin_topk_pipelined_carry(q, corpus.T.contiguous().T, 512, 256)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K4.bin_topk_pipelined_carry(q.cpu(), corpus, 512, 256)
+    for n_buffers in (1, K4.MAX_BUFFERS + 1):
+        with pytest.raises(ValueError, match="n_buffers"):
+            K4.bin_topk_pipelined_carry(q, corpus, 512, 256, n_buffers)
+    assert K4.bin_topk_pipelined_carry.launches == before
+    # The most stages that fit still launch and give K1's carry.
+    got = K4.bin_topk_pipelined_carry(q, corpus, 512, 256, K4.MAX_BUFFERS)
+    assert K4.bin_topk_pipelined_carry.launches == before + 1
+    assert torch.equal(got, K.bin_topk_carry(q, corpus, 512, 256))
 
 
 def _flash_inputs(cuda, b, t, nq, nkv, dh, lengths, seed, dtype=torch.bfloat16):

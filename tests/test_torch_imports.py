@@ -8,8 +8,9 @@ dense index), a windowed dense search and a trunk forward on flash
 attention (``forward_hidden(flash=True)`` at T = 256, the kernel's plain
 twin on the CPU), one InfoNCE train step of ``lean_explore_tpu_torch.train``
 with the documents on flash attention (forward and backward twins) and an
-HF export of the trained params, and then reports which of the forbidden
-modules are in ``sys.modules``.
+HF export of the trained params, a top-k through the pipelined bin-max
+entry (``ops.bin_topk_pipelined``, K1's plain twin on the CPU), and then
+reports which of the forbidden modules are in ``sys.modules``.
 """
 
 import json
@@ -106,6 +107,12 @@ batch = train.ContrastiveBatch(
 params, opt_state, metrics = train.make_train_step(config)(params, opt_state, batch)
 assert np.isfinite(float(metrics["loss"]))
 export_hf_checkpoint(params, config, f"{tmp}/export")
+from lean_explore_tpu_torch.ops.bin_topk_pipelined import bin_topk_pipelined
+k4_scores, k4_rows = bin_topk_pipelined(
+    torch.from_numpy(rows[:2]).float(), torch.from_numpy(rows[:256]).float(), 256,
+    k=4, bins=256, tile_rows=256,
+)
+assert k4_rows[:, 0].tolist() == [0, 1], k4_rows
 print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
 """
 
