@@ -16,7 +16,8 @@ Phases, each announced before it starts and timed after it ends:
    and a float32 corpus, and flash_attention over bf16 and float32 inputs
    at the Qwen3-0.6B serving geometry; then K5's backward kernels (dq and
    dk/dv, float32 and bf16) and its forward's lse at the training shape
-   (B 32 x T 256; bf16 also at B 64 x T 512), timed beside SDPA's backward;
+   (B 32 x T 256) and at B 64 x T 512, timed at the training shape beside
+   SDPA's backward (dq and dk/dv together too, as "pair ms / library ms");
    3b. ``bin_topk_pipelined`` through its entry point at the serving shape,
    bf16 and float32: its only path, since neither package routes to it;
 4. drive ``Service.search_batch`` of the port at full width: a 300,000-row
@@ -929,19 +930,17 @@ def _check_flash_bwd_case(name, batch, seq, seed, device, dtype) -> tuple:
 
 def check_flash_backward(device, dtype=torch.bfloat16) -> list[dict]:
     """K5's dq and dk/dv kernels at the training shape (B 32 x T 256, the
-    CLI's documents; bf16 also at the forward's B 64 x T 512), timed at
-    the training shape beside their bound, the plain twin and SDPA's
-    backward."""
+    CLI's documents) and at the forward's B 64 x T 512, timed at the
+    training shape beside their bound, the plain twin and SDPA's backward."""
     import torch.nn.functional as nnf
 
     from lean_explore_tpu_torch.ops import flash_attention as FA
 
     f32 = dtype == torch.float32
+    more = _check_flash_bwd_case("serving shape", FLASH_B, FLASH_T, 71, device, dtype)[0]
+    torch.cuda.empty_cache()
     errs, inputs = _check_flash_bwd_case("training shape", TRAIN_B, TRAIN_T, 70, device, dtype)
-    if not f32:
-        more, _ = _check_flash_bwd_case("serving shape", FLASH_B, FLASH_T, 71, device, dtype)
-        errs = {k_: max(errs[k_], more[k_]) for k_ in errs}
-        torch.cuda.empty_cache()
+    errs = {k_: max(errs[k_], more[k_]) for k_ in errs}
     q, k, v, mask, dout, lse, di = inputs
     scale = FLASH_DH**-0.5
     args = (q, k, v, mask, dout, lse, di, scale)
@@ -964,6 +963,10 @@ def check_flash_backward(device, dtype=torch.bfloat16) -> list[dict]:
         lambda: torch.autograd.grad(sdpa_out, leaves, grad_out, retain_graph=True), reps
     )
     del sdpa_out, leaves
+    log(
+        f"  flash backward {dtype} pair (dq + dk/dv) {dq_ms + dkv_ms:.4f} ms / library SDPA "
+        f"backward {library_ms:.4f} ms at B={TRAIN_B} T={TRAIN_T}"
+    )
     pairs = float(allowed.sum())
     size = q.element_size()
     common = (2 * q.numel() + k.numel() + v.numel()) * size + 2 * lse.numel() * 4 + mask.numel() * 4

@@ -27,10 +27,9 @@
 // segment and the diagonal, so lse is finite on every row and no NaN can
 // arise; where dO is 0 (pad rows of a pooled loss) they add nothing.
 //
-// Design. Four warps of 16 rows over 64-row tiles, every product on the
-// two shapes of flash_tiles.cuh (mma.sync m16n8k16 bf16 -> f32; 3xTF32
-// m16n8k8 for f32 inputs, as in the forward: within about 3 * 2^-22 of f32
-// per product).
+// bf16 design. Four warps of 16 rows over 64-row tiles padded by 16 bytes,
+// every product on mma.sync m16n8k16 bf16 -> f32 (rows_x_rows and
+// acc_x_tile of flash_tiles.cuh).
 //
 // - dk/dv: one block per (64-key block, kv head, batch row), the earliest
 //   key blocks (the most queries) first. K and V stay in shared memory;
@@ -47,18 +46,63 @@
 //   warp owns 16 queries: S = Q K^T, P, dP = dO V^T, dS, dQ += dS K.
 //
 // Shared memory: two fixed tiles and two double-buffered ones of
-// 64 x (DH * ELEM + 16) bytes, 102 KB at DH = 128 in bf16 and 198 KB in f32
-// (one block per SM), plus the segment ids (1 KB at T = 256). Registers
-// (ptxas, DH = 128): bf16 dq 238, dk/dv 250, no spills; f32 255 each, with
-// 4 (dq) and 32 (dk/dv) bytes spilled to the stack.
+// 64 x (DH * 2 + 16) bytes, 102 KB at DH = 128 (two blocks an SM), plus
+// the segment ids. Registers (ptxas, DH = 128): dq 238, dk/dv 250, no spill.
+//
+// float32 design (3xTF32: each operand split into tf32 hi and lo, every
+// product lo*hi + hi*lo + hi*hi on mma.sync m16n8k8, within about 3 * 2^-22
+// of f32 per product, as in the forward). The products and their
+// operands are the bf16 kernels'; the blocks differ, because four warps
+// over 64-row f32 tiles ran one block of 4 warps an SM (198 KB of padded
+// tiles), computed S^T twice in dk/dv (5 products a tile pair, where 4 do)
+// for want of registers, split every streamed value again in each warp and
+// read acc_x_tile's B with 2-way bank conflicts (its pad served ldmatrix
+// only).
+//
+// - Eight warps of 16 rows, one block of 128 keys (dk/dv) or queries (dq)
+//   and 8 warps an SM. Q and dO (dk/dv), or K and V (dq), stream as
+//   32-row tiles, so a warp's S and dP fragments are 16 registers each and
+//   dK and dV fit together: dk/dv runs one pass, S^T once, 4 products a
+//   tile pair (dq 3). A warp skips a streamed tile that lies wholly before
+//   its first key (dk/dv) or after its last query (dq); T % 128 == 64
+//   leaves the last block's warps 4-7 without rows, and they only copy.
+// - Tiles are unpadded, with each row's 16-byte chunks XOR-swizzled by the
+//   row's place in its 8-row group (flash_tiles.cuh), so that ldmatrix and
+//   acc_x_tile_f32's 16-byte B loads are both free of bank conflicts.
+// - Each streamed tile is split into tf32 hi and lo tiles once, in shared
+//   memory, by the thread that copied each chunk; the products load both
+//   halves and split only the fixed rows of the warp (A) and X in
+//   registers, hi by an integer add and mask (cvt's result for every
+//   finite value, in 2 instructions where cvt takes 4).
+// - acc_x_tile_f32 permutes the k index of each 8-deep chunk (X's
+//   accumulator registers are then the tf32 A fragment: no shuffles) and
+//   the output columns (a lane's B values of 4 n-tiles are one 16-byte
+//   load); store_rows_f32 writes the columns back in order.
+// - The loop: wait for this thread's copies of the streamed pair, a
+//   barrier (no warp still reads the last pair's hi and lo), split them,
+//   start the next pair's copy, a barrier, compute. The next copy so
+//   overlaps this pair's products; its lse, di and segment ids are staged
+//   beside it by 4-byte cp.async.
+// - No atomics: every dq, dk and dv element is summed by one thread in a
+//   fixed order, so repeated launches give the same bits.
+//
+// Shared memory (DH = 128): K and V (or Q and dO) 128 KB, the streamed
+// pair 32 KB, its hi and lo 64 KB, the staged rows 768 bytes: 225 KB
+// whatever T is. Registers (ptxas, DH = 128 / 64): dk/dv 255 / 182, dq
+// 187 / 140, no spill; `rows_x_rows_f32` unrolls by 4, since full
+// unrolling spilled 80 (dk/dv) and 108 (dq) bytes.
 //
 // Bound at the training shape (B = 32, T = 256, NQ 16, NKV 8, DH 128, f32):
 // each kernel reads q, k, v, dO, lse and di and writes its gradients once,
 // about 270 MB, 0.080 ms at 3.35 TB/s; its 3 (dq) or 4 (dk/dv) products
 // over the causal pairs are 0.026 and 0.035 ms at 495 TFLOP/s TF32. Both
-// are bound by bytes. These first kernels reread K/V (dq) and Q/dO (dk/dv)
-// from L2 for every tile and recompute S in both; wgmma, TMA and warp
-// specialisation are later work.
+// are bound by bytes. The f32 kernels are held instead by mma.sync: they
+// run 28.3 M (dk/dv) and 21.2 M (dq) HMMA.1688 over whole 16 x 32 warp
+// tiles, and scripts/measure_mma_tf32_rate.py, which counts them, measures
+// at most about 1.19 G of them a second an SM on an H100 (0.18 and 0.13 ms
+// for these counts), where these kernels, 8 warps of 255 (dk/dv) and 187
+// (dq) registers, take about 2.9 times that; wgmma is the route past it.
+// They reread K/V (dq) and Q/dO (dk/dv) from L2 for every block.
 
 #include "flash_tiles.cuh"
 
@@ -144,10 +188,10 @@ struct BwdArgs {
 // One pass of the dk/dv block over its (q head, query block) pairs: DK
 // false accumulates dV = sum P^T dO, DK true dK = sum dS^T Q; the result
 // is written to rows k0 + warp * 16 .. of dv or dk.
-template <int DH, int ELEM, bool DK>
+template <int DH, bool DK>
 __device__ __forceinline__ void dkv_pass(const BwdArgs& a, uint8_t* smem, int kb, int hk,
                                          int b, bool load_kv) {
-  using S = FlashShape<DH, ELEM>;
+  using S = FlashShape<DH, 2>;
   constexpr int ROW = S::ROW;
   uint8_t* sk = smem;
   uint8_t* sv = smem + S::TILE;
@@ -163,8 +207,8 @@ __device__ __forceinline__ void dkv_pass(const BwdArgs& a, uint8_t* smem, int kb
   const int group = a.NQ / a.NKV;
   const int nqb = T / FA_BLOCK;
   const int k0 = kb * FA_BLOCK;
-  const long long q_stride = (long long)a.NQ * DH * ELEM;
-  const long long kv_stride = (long long)a.NKV * DH * ELEM;
+  const long long q_stride = (long long)a.NQ * DH * 2;
+  const long long kv_stride = (long long)a.NKV * DH * 2;
   const float scale_log2 = a.sm_scale * LOG2E;
 
   // Pairs (h, qb): the group's heads, each over the query blocks kb..nqb-1.
@@ -173,14 +217,14 @@ __device__ __forceinline__ void dkv_pass(const BwdArgs& a, uint8_t* smem, int kb
   auto load = [&](int it, int buf) {
     const int h = hk * group + it / span;
     const int q0 = (kb + it % span) * FA_BLOCK;
-    const long long off = ((long long)b * T + q0) * q_stride + (long long)h * DH * ELEM;
-    load_tile<DH, ELEM, ROW>(sq + buf * S::TILE, a.q + off, q_stride, tid);
-    load_tile<DH, ELEM, ROW>(sdo + buf * S::TILE, a.dout + off, q_stride, tid);
+    const long long off = ((long long)b * T + q0) * q_stride + (long long)h * DH * 2;
+    load_tile<DH, 2, ROW>(sq + buf * S::TILE, a.q + off, q_stride, tid);
+    load_tile<DH, 2, ROW>(sdo + buf * S::TILE, a.dout + off, q_stride, tid);
   };
   if (load_kv) {
-    const long long off = ((long long)b * T + k0) * kv_stride + (long long)hk * DH * ELEM;
-    load_tile<DH, ELEM, ROW>(sk, a.k + off, kv_stride, tid);
-    load_tile<DH, ELEM, ROW>(sv, a.v + off, kv_stride, tid);
+    const long long off = ((long long)b * T + k0) * kv_stride + (long long)hk * DH * 2;
+    load_tile<DH, 2, ROW>(sk, a.k + off, kv_stride, tid);
+    load_tile<DH, 2, ROW>(sv, a.v + off, kv_stride, tid);
   }
   load(0, 0);
   cp_async_commit();
@@ -211,42 +255,42 @@ __device__ __forceinline__ void dkv_pass(const BwdArgs& a, uint8_t* smem, int kb
     const uint8_t* dot = sdo + buf * S::TILE;
     float p[8][4];
     zero(p);
-    rows_x_rows<DH, ELEM, ROW>(p, sk, warp * 16, qt, lane);  // S^T = K Q^T
+    rows_x_rows<DH, ROW>(p, sk, warp * 16, qt, lane);  // S^T = K Q^T
     probabilities<true>(p, sseg, k0 + warp * 16, q0, nullptr, lse2, lane, scale_log2);
     if constexpr (DK) {
       float ds[8][4];
       zero(ds);
-      rows_x_rows<DH, ELEM, ROW>(ds, sv, warp * 16, dot, lane);  // dP^T = V dO^T
+      rows_x_rows<DH, ROW>(ds, sv, warp * 16, dot, lane);  // dP^T = V dO^T
       score_grads<true>(ds, p, nullptr, dis, a.sm_scale);
-      acc_x_tile<DH, ELEM, ROW>(acc, ds, qt, lane);  // dK += dS^T Q
+      acc_x_tile<DH, ROW>(acc, ds, qt, lane);  // dK += dS^T Q
     } else {
-      acc_x_tile<DH, ELEM, ROW>(acc, p, dot, lane);  // dV += P^T dO
+      acc_x_tile<DH, ROW>(acc, p, dot, lane);  // dV += P^T dO
     }
     __syncthreads();
   }
   cp_async_wait_all();
 
   uint8_t* dst = (DK ? a.dk : a.dv) +
-                 (((long long)b * T) * a.NKV + hk) * DH * ELEM;
-  store_rows<DH, ELEM>(dst, (long long)a.NKV * DH, k0 + warp * 16 + (lane >> 2), acc, lane);
+                 (((long long)b * T) * a.NKV + hk) * DH * 2;
+  store_rows<DH>(dst, (long long)a.NKV * DH, k0 + warp * 16 + (lane >> 2), acc, lane);
 }
 
-template <int DH, int ELEM>
+template <int DH>
 __global__ void __launch_bounds__(FA_THREADS) flash_attention_dkv_kernel(BwdArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  using S = FlashShape<DH, ELEM>;
+  using S = FlashShape<DH, 2>;
   int* sseg = reinterpret_cast<int*>(smem + 6 * S::TILE);
   const int kb = blockIdx.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   for (int i = threadIdx.x; i < a.T; i += FA_THREADS) sseg[i] = a.seg[(long long)b * a.T + i];
-  dkv_pass<DH, ELEM, false>(a, smem, kb, hk, b, true);
-  dkv_pass<DH, ELEM, true>(a, smem, kb, hk, b, false);
+  dkv_pass<DH, false>(a, smem, kb, hk, b, true);
+  dkv_pass<DH, true>(a, smem, kb, hk, b, false);
 }
 
-template <int DH, int ELEM>
+template <int DH>
 __global__ void __launch_bounds__(FA_THREADS) flash_attention_dq_kernel(BwdArgs a) {
-  using S = FlashShape<DH, ELEM>;
+  using S = FlashShape<DH, 2>;
   constexpr int ROW = S::ROW;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* sq = smem;
@@ -264,17 +308,17 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_dq_kernel(BwdArgs 
   const int T = a.T;
   const int hk = h / (a.NQ / a.NKV);
   const int q0 = qb * FA_BLOCK;
-  const long long q_stride = (long long)a.NQ * DH * ELEM;
-  const long long kv_stride = (long long)a.NKV * DH * ELEM;
-  const long long q_off = ((long long)b * T + q0) * q_stride + (long long)h * DH * ELEM;
-  const long long kv_base = (long long)b * T * kv_stride + (long long)hk * DH * ELEM;
+  const long long q_stride = (long long)a.NQ * DH * 2;
+  const long long kv_stride = (long long)a.NKV * DH * 2;
+  const long long q_off = ((long long)b * T + q0) * q_stride + (long long)h * DH * 2;
+  const long long kv_base = (long long)b * T * kv_stride + (long long)hk * DH * 2;
   const float scale_log2 = a.sm_scale * LOG2E;
 
   for (int i = tid; i < T; i += FA_THREADS) sseg[i] = a.seg[(long long)b * T + i];
-  load_tile<DH, ELEM, ROW>(sq, a.q + q_off, q_stride, tid);
-  load_tile<DH, ELEM, ROW>(sdo, a.dout + q_off, q_stride, tid);
-  load_tile<DH, ELEM, ROW>(sk, a.k + kv_base, kv_stride, tid);
-  load_tile<DH, ELEM, ROW>(sv, a.v + kv_base, kv_stride, tid);
+  load_tile<DH, 2, ROW>(sq, a.q + q_off, q_stride, tid);
+  load_tile<DH, 2, ROW>(sdo, a.dout + q_off, q_stride, tid);
+  load_tile<DH, 2, ROW>(sk, a.k + kv_base, kv_stride, tid);
+  load_tile<DH, 2, ROW>(sv, a.v + kv_base, kv_stride, tid);
   cp_async_commit();
 
   // This thread's two query rows, row_lo and row_lo + 8.
@@ -290,8 +334,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_dq_kernel(BwdArgs 
     const int buf = kb & 1;
     if (kb + 1 < n_kblocks) {
       const long long next = kv_base + (long long)(kb + 1) * FA_BLOCK * kv_stride;
-      load_tile<DH, ELEM, ROW>(sk + (buf ^ 1) * S::TILE, a.k + next, kv_stride, tid);
-      load_tile<DH, ELEM, ROW>(sv + (buf ^ 1) * S::TILE, a.v + next, kv_stride, tid);
+      load_tile<DH, 2, ROW>(sk + (buf ^ 1) * S::TILE, a.k + next, kv_stride, tid);
+      load_tile<DH, 2, ROW>(sv + (buf ^ 1) * S::TILE, a.v + next, kv_stride, tid);
     }
     cp_async_commit();
     cp_async_wait_one();
@@ -301,29 +345,337 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_dq_kernel(BwdArgs 
     float p[8][4], ds[8][4];
     zero(p);
     zero(ds);
-    rows_x_rows<DH, ELEM, ROW>(p, sq, warp * 16, kt, lane);  // S = Q K^T
+    rows_x_rows<DH, ROW>(p, sq, warp * 16, kt, lane);  // S = Q K^T
     probabilities<false>(p, sseg, q0 + warp * 16, kb * FA_BLOCK, lse2, nullptr, lane,
                          scale_log2);
-    rows_x_rows<DH, ELEM, ROW>(ds, sdo, warp * 16, sv + buf * S::TILE, lane);  // dP = dO V^T
+    rows_x_rows<DH, ROW>(ds, sdo, warp * 16, sv + buf * S::TILE, lane);  // dP = dO V^T
     score_grads<false>(ds, p, dis, nullptr, a.sm_scale);
-    acc_x_tile<DH, ELEM, ROW>(acc, ds, kt, lane);  // dQ += dS K
+    acc_x_tile<DH, ROW>(acc, ds, kt, lane);  // dQ += dS K
     __syncthreads();
   }
   cp_async_wait_all();
 
-  store_rows<DH, ELEM>(a.dq + (((long long)b * T) * a.NQ + h) * DH * ELEM,
-                       (long long)a.NQ * DH, row_lo, acc, lane);
+  store_rows<DH>(a.dq + (((long long)b * T) * a.NQ + h) * DH * 2, (long long)a.NQ * DH, row_lo,
+                 acc, lane);
 }
 
-template <int DH, int ELEM, bool DQ>
+template <int DH, bool DQ>
 int launch_bwd(const BwdArgs& a, int B, void* stream) {
-  auto kernel = DQ ? flash_attention_dq_kernel<DH, ELEM> : flash_attention_dkv_kernel<DH, ELEM>;
-  const size_t smem = FlashShape<DH, ELEM>::bwd_smem_bytes(a.T);
+  auto kernel = DQ ? flash_attention_dq_kernel<DH> : flash_attention_dkv_kernel<DH>;
+  const size_t smem = FlashShape<DH, 2>::bwd_smem_bytes(a.T);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(a.T / FA_BLOCK, DQ ? a.NQ : a.NKV, B);
   kernel<<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// float32: 3xTF32 kernels of eight warps on swizzled tiles (the note above).
+
+constexpr int F32_ROWS = 128;     // keys (dk/dv) or queries (dq) of a block
+constexpr int F32_THREADS = 256;  // eight warps of 16 rows
+constexpr int STREAM_ROWS = 32;   // rows of a streamed tile
+
+// Shared memory of an f32 block: two fixed tiles of F32_ROWS rows (K and V
+// in dk/dv, Q and dO in dq), the copies of a streamed pair of 32-row tiles
+// (Q and dO, or K and V), their tf32 hi and lo tiles, and per streamed
+// tile, in two buffers, its rows' lse, di and segment ids (dq reads the
+// ids only).
+template <int DH>
+struct F32Shape {
+  static constexpr int FIXED = F32_ROWS * DH * 4;
+  static constexpr int STREAM = STREAM_ROWS * DH * 4;
+  static constexpr int RAW = 2 * FIXED;                // two streamed copies
+  static constexpr int SPLIT = RAW + 2 * STREAM;       // hi, lo of each
+  static constexpr int ROWS = SPLIT + 4 * STREAM;      // [2][lse, di, seg][32]
+  static constexpr int BYTES = ROWS + 2 * 3 * STREAM_ROWS * 4;
+  static_assert(BYTES <= 232448, "an f32 backward block exceeds shared memory");
+};
+
+// 4-byte async copy (lse, di and segment ids need no more than their own
+// alignment).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// probabilities over a warp's 16 x 32 score fragment: s[j][e] (row
+// row0 + g + (e >> 1) * 8, column col0 + 8j + 2t + (e & 1)), with the rows'
+// segment ids row_seg and the 32 columns' col_seg. KEY_ROWS (dk/dv): the
+// rows are keys, and the columns' lse comes from lse_cols; else the rows
+// are queries with lse2_rows = lse * log2(e) of rows g and g + 8.
+template <bool KEY_ROWS>
+__device__ __forceinline__ void probabilities_f32(float (&s)[4][4], const int (&row_seg)[2],
+                                                  const int* col_seg, int row0, int col0,
+                                                  const float (&lse2_rows)[2],
+                                                  const float* lse_cols, int lane,
+                                                  float scale_log2) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int2 seg2 = *reinterpret_cast<const int2*>(col_seg + 8 * j + 2 * t);
+    float2 lse2 = make_float2(0.0f, 0.0f);
+    if constexpr (KEY_ROWS) lse2 = *reinterpret_cast<const float2*>(lse_cols + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + (e >> 1) * 8;
+      const int col = col0 + 8 * j + 2 * t + (e & 1);
+      float lse;
+      bool ok;
+      if constexpr (KEY_ROWS) {
+        lse = ((e & 1) ? lse2.y : lse2.x) * LOG2E;
+        ok = row <= col;
+      } else {
+        lse = lse2_rows[e >> 1];
+        ok = col <= row;
+      }
+      ok = ok && row_seg[e >> 1] == ((e & 1) ? seg2.y : seg2.x);
+      s[j][e] = exp2f((ok ? s[j][e] * scale_log2 : FA_MASK) - lse);
+    }
+  }
+}
+
+// ds = sm_scale * p * (dp - di), in place in dp; di of the query (the
+// columns' staged values in dk/dv, the rows' in dq).
+template <bool KEY_ROWS>
+__device__ __forceinline__ void score_grads_f32(float (&dp)[4][4], const float (&p)[4][4],
+                                                const float (&di_rows)[2],
+                                                const float* di_cols, int lane,
+                                                float sm_scale) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float di = KEY_ROWS ? di_cols[8 * j + 2 * t + (e & 1)] : di_rows[e >> 1];
+      dp[j][e] = sm_scale * p[j][e] * (dp[j][e] - di);
+    }
+}
+
+// The streamed pair of one iteration: both 32-row tiles by cp.async (the
+// rows of tile `first` and of `second`, row stride `stride` bytes) and the
+// staged values of its rows into buffer buf: lse and di (when lse is not
+// null; rows [lse_row, +32) of [B, NQ, T]) and the segment ids from seg.
+template <int DH>
+__device__ __forceinline__ void load_stream(uint8_t* smem, const uint8_t* first,
+                                            const uint8_t* second, long long stride,
+                                            const float* lse, const float* di,
+                                            long long lse_row, const int* seg, int buf,
+                                            int tid) {
+  using S = F32Shape<DH>;
+  load_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW, first, stride, STREAM_ROWS, tid);
+  load_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW + S::STREAM, second, stride,
+                                             STREAM_ROWS, tid);
+  float* rows = reinterpret_cast<float*>(smem + S::ROWS) + buf * 3 * STREAM_ROWS;
+  const int r = tid % STREAM_ROWS;
+  if (tid < STREAM_ROWS) {
+    cp_async4(rows + 2 * STREAM_ROWS + r, seg + r);
+  } else if (lse != nullptr && tid < 3 * STREAM_ROWS) {
+    const bool is_lse = tid < 2 * STREAM_ROWS;
+    cp_async4(rows + (is_lse ? 0 : STREAM_ROWS) + r, (is_lse ? lse : di) + lse_row + r);
+  }
+}
+
+// The top of every iteration: waits for this thread's copies of the
+// streamed pair, and, once no warp reads the hi and lo tiles of the last
+// pair any more, splits its own chunks of this pair into them.
+template <int DH>
+__device__ __forceinline__ void split_stream(uint8_t* smem, int tid) {
+  using S = F32Shape<DH>;
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    split_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW + i * S::STREAM,
+                                                smem + S::SPLIT + 2 * i * S::STREAM,
+                                                smem + S::SPLIT + (2 * i + 1) * S::STREAM, tid);
+  }
+  // The next pair's cp.async rewrites these chunks: keep the reads above it.
+  asm volatile("" ::: "memory");
+}
+
+template <int DH>
+__global__ void __launch_bounds__(F32_THREADS, 1) flash_attention_dkv_f32_kernel(BwdArgs a) {
+  using S = F32Shape<DH>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint8_t* sk = smem;
+  const uint8_t* sv = smem + S::FIXED;
+  const uint8_t* q_hi = smem + S::SPLIT;
+  const uint8_t* q_lo = q_hi + S::STREAM;
+  const uint8_t* do_hi = q_lo + S::STREAM;
+  const uint8_t* do_lo = do_hi + S::STREAM;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int kb = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int T = a.T;
+  const int group = a.NQ / a.NKV;
+  const int k0 = kb * F32_ROWS;
+  const int kw = k0 + warp * 16;  // this warp's first key; none when kw >= T
+  const long long q_stride = (long long)a.NQ * DH * 4;
+  const long long kv_stride = (long long)a.NKV * DH * 4;
+  const float scale_log2 = a.sm_scale * LOG2E;
+  const float no_rows[2] = {0.0f, 0.0f};
+  const int* seg = a.seg + (long long)b * T;
+
+  const long long kv_off = ((long long)b * T + k0) * kv_stride + (long long)hk * DH * 4;
+  const int n_keys = min(F32_ROWS, T - k0);
+  load_rows_f32<DH, F32_ROWS, F32_THREADS>(smem, a.k + kv_off, kv_stride, n_keys, tid);
+  load_rows_f32<DH, F32_ROWS, F32_THREADS>(smem + S::FIXED, a.v + kv_off, kv_stride, n_keys,
+                                          tid);
+  // This thread's two keys, kw + g and kw + g + 8.
+  const int key_seg[2] = {kw < T ? seg[kw + (lane >> 2)] : 0,
+                          kw < T ? seg[kw + (lane >> 2) + 8] : 0};
+
+  // Pairs (h, query tile): the group's heads, each over the 32-row tiles
+  // from the one holding key k0 on.
+  const int first = k0 / STREAM_ROWS;
+  const int span = T / STREAM_ROWS - first;
+  const int n_iter = group * span;
+  auto load = [&](int it) {
+    const int h = hk * group + it / span;
+    const int q0 = (first + it % span) * STREAM_ROWS;
+    const long long off = ((long long)b * T + q0) * q_stride + (long long)h * DH * 4;
+    load_stream<DH>(smem, a.q + off, a.dout + off, q_stride, a.lse, a.di,
+                    ((long long)b * a.NQ + h) * T + q0, seg + q0, it & 1, tid);
+  };
+  load(0);
+  cp_async_commit();
+
+  float dk[DH / 8][4], dv[DH / 8][4];
+  zero(dk);
+  zero(dv);
+  for (int it = 0; it < n_iter; ++it) {
+    split_stream<DH>(smem, tid);
+    if (it + 1 < n_iter) load(it + 1);
+    cp_async_commit();
+    __syncthreads();
+
+    const int q0 = (first + it % span) * STREAM_ROWS;
+    // Causal: a tile that ends before this warp's first key adds nothing.
+    if (kw < T && kw <= q0 + STREAM_ROWS - 1) {
+      const float* rows = reinterpret_cast<const float*>(smem + S::ROWS) +
+                          (it & 1) * 3 * STREAM_ROWS;
+      const int* q_seg = reinterpret_cast<const int*>(rows + 2 * STREAM_ROWS);
+      float p[4][4], ds[4][4];
+      zero(p);
+      rows_x_rows_f32<DH, 4>(p, sk, warp * 16, q_hi, q_lo, lane);  // S^T = K Q^T
+      probabilities_f32<true>(p, key_seg, q_seg, kw, q0, no_rows, rows, lane, scale_log2);
+      acc_x_tile_f32<DH, STREAM_ROWS>(dv, p, do_hi, do_lo, lane);  // dV += P^T dO
+      zero(ds);
+      rows_x_rows_f32<DH, 4>(ds, sv, warp * 16, do_hi, do_lo, lane);  // dP^T = V dO^T
+      score_grads_f32<true>(ds, p, no_rows, rows + STREAM_ROWS, lane, a.sm_scale);
+      acc_x_tile_f32<DH, STREAM_ROWS>(dk, ds, q_hi, q_lo, lane);  // dK += dS^T Q
+    }
+  }
+  cp_async_wait_all();
+
+  if (kw < T) {
+    const long long base = ((long long)b * T * a.NKV + hk) * DH;
+    const long long stride = (long long)a.NKV * DH;
+    store_rows_f32<DH>(reinterpret_cast<float*>(a.dk) + base, stride, kw + (lane >> 2), dk, lane);
+    store_rows_f32<DH>(reinterpret_cast<float*>(a.dv) + base, stride, kw + (lane >> 2), dv, lane);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(F32_THREADS, 1) flash_attention_dq_f32_kernel(BwdArgs a) {
+  using S = F32Shape<DH>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint8_t* sq = smem;
+  const uint8_t* sdo = smem + S::FIXED;
+  const uint8_t* k_hi = smem + S::SPLIT;
+  const uint8_t* k_lo = k_hi + S::STREAM;
+  const uint8_t* v_hi = k_lo + S::STREAM;
+  const uint8_t* v_lo = v_hi + S::STREAM;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int qb = gridDim.x - 1 - blockIdx.x;  // the latest queries (the most keys) first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int T = a.T;
+  const int hk = h / (a.NQ / a.NKV);
+  const int q0 = qb * F32_ROWS;
+  const int qw = q0 + warp * 16;  // this warp's first query; none when qw >= T
+  const int n_queries = min(F32_ROWS, T - q0);
+  const long long q_stride = (long long)a.NQ * DH * 4;
+  const long long kv_stride = (long long)a.NKV * DH * 4;
+  const long long q_off = ((long long)b * T + q0) * q_stride + (long long)h * DH * 4;
+  const long long kv_base = (long long)b * T * kv_stride + (long long)hk * DH * 4;
+  const float scale_log2 = a.sm_scale * LOG2E;
+  const int* seg = a.seg + (long long)b * T;
+
+  load_rows_f32<DH, F32_ROWS, F32_THREADS>(smem, a.q + q_off, q_stride, n_queries, tid);
+  load_rows_f32<DH, F32_ROWS, F32_THREADS>(smem + S::FIXED, a.dout + q_off, q_stride,
+                                          n_queries, tid);
+  auto load = [&](int kt) {
+    const long long off = kv_base + (long long)kt * STREAM_ROWS * kv_stride;
+    load_stream<DH>(smem, a.k + off, a.v + off, kv_stride, nullptr, nullptr, 0,
+                    seg + kt * STREAM_ROWS, kt & 1, tid);
+  };
+  load(0);
+  cp_async_commit();
+
+  // This thread's two query rows, row_lo and row_lo + 8.
+  const int row_lo = qw + (lane >> 2);
+  float lse2[2] = {0.0f, 0.0f}, dis[2] = {0.0f, 0.0f};
+  int q_seg[2] = {0, 0};
+  if (qw < T) {
+    const long long bh = ((long long)b * a.NQ + h) * T;
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = a.lse[bh + row_lo + 8 * r] * LOG2E;
+      dis[r] = a.di[bh + row_lo + 8 * r];
+      q_seg[r] = seg[row_lo + 8 * r];
+    }
+  }
+
+  float dq[DH / 8][4];
+  zero(dq);
+  const int n_tiles = (q0 + n_queries) / STREAM_ROWS;  // key tiles up to the last query
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    split_stream<DH>(smem, tid);
+    if (kt + 1 < n_tiles) load(kt + 1);
+    cp_async_commit();
+    __syncthreads();
+
+    const int k0 = kt * STREAM_ROWS;
+    // Causal: a tile that starts after this warp's last query adds nothing.
+    if (qw < T && k0 <= qw + 15) {
+      const int* k_seg =
+          reinterpret_cast<const int*>(smem + S::ROWS) + ((kt & 1) * 3 + 2) * STREAM_ROWS;
+      float p[4][4], ds[4][4];
+      zero(p);
+      rows_x_rows_f32<DH, 4>(p, sq, warp * 16, k_hi, k_lo, lane);  // S = Q K^T
+      probabilities_f32<false>(p, q_seg, k_seg, qw, k0, lse2, nullptr, lane, scale_log2);
+      zero(ds);
+      rows_x_rows_f32<DH, 4>(ds, sdo, warp * 16, v_hi, v_lo, lane);  // dP = dO V^T
+      score_grads_f32<false>(ds, p, dis, nullptr, lane, a.sm_scale);
+      acc_x_tile_f32<DH, STREAM_ROWS>(dq, ds, k_hi, k_lo, lane);  // dQ += dS K
+    }
+  }
+  cp_async_wait_all();
+
+  if (qw < T) {
+    store_rows_f32<DH>(reinterpret_cast<float*>(a.dq) + ((long long)b * T * a.NQ + h) * DH,
+                       (long long)a.NQ * DH, row_lo, dq, lane);
+  }
+}
+
+template <int DH, bool DQ>
+int launch_bwd_f32(const BwdArgs& a, int B, void* stream) {
+  auto kernel = DQ ? flash_attention_dq_f32_kernel<DH> : flash_attention_dkv_f32_kernel<DH>;
+  constexpr int smem = F32Shape<DH>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((a.T + F32_ROWS - 1) / F32_ROWS, DQ ? a.NQ : a.NKV, B);
+  kernel<<<grid, F32_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -338,8 +690,13 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* seg, c
                   static_cast<uint8_t*>(dk),         static_cast<uint8_t*>(dv),
                   T,                                 NQ,
                   NKV,                               sm_scale};
-  if (DH == 128) return launch_bwd<128, ELEM, DQ>(a, B, stream);
-  if (DH == 64) return launch_bwd<64, ELEM, DQ>(a, B, stream);
+  if constexpr (ELEM == 2) {
+    if (DH == 128) return launch_bwd<128, DQ>(a, B, stream);
+    if (DH == 64) return launch_bwd<64, DQ>(a, B, stream);
+  } else {
+    if (DH == 128) return launch_bwd_f32<128, DQ>(a, B, stream);
+    if (DH == 64) return launch_bwd_f32<64, DQ>(a, B, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

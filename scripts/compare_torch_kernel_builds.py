@@ -1,11 +1,12 @@
-"""Do the port's retrieval kernels and its flash-attention forward give
-the same bits as another tree's build of them? On one GPU.
+"""Do the port's retrieval kernels and its flash-attention forward and
+bf16 backward give the same bits as another tree's build of them? On one
+GPU.
 
     python3 scripts/compare_torch_kernel_builds.py --other unpacked/parent
 
 Builds ``csrc/bin_topk.cu``, ``csrc/bin_topk_int8.cu``,
 ``csrc/windowed_scores.cu``, ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu`` (registers only) of this tree and of the
+``csrc/flash_attention_bwd.cu`` of this tree and of the
 tree at ``--other`` (for example the parent commit, unpacked with
 ``git archive`` into a directory that .gitignore lists) with the port's
 nvcc flags, each into its own directory under ``build/compare_builds/``,
@@ -17,15 +18,23 @@ shape (300,000 valid rows of a 300,032 x 1024 unit-row corpus, B = 128,
 bins = 4096, window 8) and two small shapes, and ``flash_attention_fwd``
 (bf16) and ``flash_attention_fwd_f32`` (the forward without lse) at the
 serving shape (B = 64, T = 512, 16/8 heads, DH 128, ragged lengths) and a
-small DH 64 shape. It prints, per kernel and shape, whether the outputs are
-equal bit for bit, then the registers ``ptxas -v`` reports for each build,
-and exits 1 if any output differs. Needs a CUDA device and nvcc; exits 2
-without a device.
+small DH 64 shape, and the backward's bf16 entries ``flash_attention_bwd_dq``
+and ``flash_attention_bwd_dkv`` at the training shape (B = 32, T = 256,
+16/8 heads, DH 128, ragged and left-padded rows, dO zero on pad rows) and
+the small DH 64 shape. It prints, per kernel and shape, whether the outputs
+are equal bit for bit; then the CUDA-event mean of 20 launches of each
+build's float32 backward entries (``flash_attention_bwd_dq_f32``,
+``flash_attention_bwd_dkv_f32``) at the training shape, in turns (other,
+this, this, other); then, per kernel function of each build, the registers
+and spill bytes ``ptxas -v`` reports. Exits 1 if any output differs. Needs
+a CUDA device and nvcc; exits 2 without a device.
 """
 
 import argparse
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -38,6 +47,12 @@ KERNELS = (
 )
 # (batch, seq, nq, nkv, dh) of the flash-attention forward
 FLASH_SHAPES = ((64, 512, 16, 8, 128), (3, 256, 4, 2, 64))
+# (batch, seq, nq, nkv, dh) of the flash backward: the training shape first
+BWD_SHAPES = ((32, 256, 16, 8, 128), (3, 256, 4, 2, 64))
+BWD_ENTRIES = {
+    torch.bfloat16: ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+    torch.float32: ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32"),
+}
 # (n_rows, n_valid, dim, batch, bins, window)
 SHAPES = (
     (300_032, 300_000, 1024, 128, 4096, 8),
@@ -46,8 +61,31 @@ SHAPES = (
 )
 
 
-def build(csrc: Path, out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
-    """{kernel: (library, ptxas register lines)} built from ``csrc``."""
+def ptxas_functions(log: str) -> list[str]:
+    """One line per kernel function of a ``ptxas -v`` log: its name
+    (demangled where c++filt exists), registers and spill bytes."""
+    rows, name, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name, spills = entry.group(1), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows.append((name, f"{regs} registers; {spills}"))
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(n for n, _ in rows), capture_output=True, text=True
+        ).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(demangled, info) for demangled, (_, info) in zip(names, rows)]
+    return [f"{name}: {info}" for name, info in rows]
+
+
+def build(csrc: Path, out_dir: Path) -> dict[str, tuple[ctypes.CDLL, list[str]]]:
+    """{kernel: (library, ptxas lines per kernel function)} built from ``csrc``."""
     sys.path.insert(0, str(REPO))
     from lean_explore_tpu_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
 
@@ -64,10 +102,7 @@ def build(csrc: Path, out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {csrc / name}.cu:\n{log}")
-        regs = "; ".join(
-            line.strip() for line in log.splitlines() if "registers" in line
-        )
-        built[name] = (ctypes.CDLL(str(lib)), regs)
+        built[name] = (ctypes.CDLL(str(lib)), ptxas_functions(log))
     return built
 
 
@@ -80,7 +115,12 @@ def _configure(kernel: str, lib: ctypes.CDLL) -> None:
         fns = [lib.bin_topk_int8_carry]
         fns[0].argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     elif kernel == "flash_attention_bwd":
-        return  # built for its registers only
+        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fns = []
+        for dq, dkv in BWD_ENTRIES.values():
+            getattr(lib, dq).argtypes = [ctypes.c_void_p] * 8 + tail
+            getattr(lib, dkv).argtypes = [ctypes.c_void_p] * 9 + tail
+            fns += [getattr(lib, dq), getattr(lib, dkv)]
     elif kernel == "windowed_scores":
         fns = [lib.windowed_scores]
         fns[0].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -181,6 +221,86 @@ def compare_flash(builds) -> tuple[list[dict], bool]:
     return results, ok
 
 
+def bwd_inputs(b, t, nq, nkv, dh, dtype) -> tuple:
+    """(q, k, v, seg, dout, lse, di) of the backward: seeded q, k, v, ragged
+    lengths with the last row left-padded, the twin's lse, dO zero on pad
+    rows and di = rowsum(dO * O)."""
+    sys.path.insert(0, str(REPO))
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(b * t + dh + 1)
+    q, k, v = (
+        torch.randn(b, t, h, dh, generator=gen, device="cuda").to(dtype) for h in (nq, nkv, nkv)
+    )
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    seg = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    seg[-1] = 0
+    seg[-1, t // 2 + 2:] = 1
+    out, lse = FA.attention_flash_plain(q, k, v, seg, dh**-0.5, with_lse=True)
+    dout = (torch.randn(out.shape, generator=gen, device="cuda") * seg[..., None]).to(dtype)
+    return q, k, v, seg, dout, lse, FA.row_dot(out, dout, nq)
+
+
+def run_bwd(lib, inputs, dq_entry: bool) -> list[torch.Tensor]:
+    """[dq] or [dk, dv] from one launch of the backward entry of q's dtype."""
+    q, k, v, seg, dout, lse, di = inputs
+    b, t, nq, dh = q.shape
+    dq, dkv = BWD_ENTRIES[q.dtype]
+    outputs = [torch.empty_like(q)] if dq_entry else [torch.empty_like(k), torch.empty_like(v)]
+    status = getattr(lib, dq if dq_entry else dkv)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), *(x.data_ptr() for x in outputs), b, t, nq,
+        k.shape[2], dh, float(dh**-0.5), torch.cuda.current_stream().cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"flash backward ({q.dtype}): cudaError {status}")
+    return outputs
+
+
+def compare_bwd(builds) -> tuple[list[dict], bool]:
+    """The bf16 backward entries of both builds on the same inputs."""
+    results, ok = [], True
+    for b, t, nq, nkv, dh in BWD_SHAPES:
+        inputs = bwd_inputs(b, t, nq, nkv, dh, torch.bfloat16)
+        for dq_entry in (True, False):
+            outs = {tag: run_bwd(libs["flash_attention_bwd"][0], inputs, dq_entry)
+                    for tag, libs in builds.items()}
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(outs["this"], outs["other"]))
+            ok &= same
+            results.append({
+                "kernel": "flash_attention_bwd_" + ("dq" if dq_entry else "dkv"),
+                "dtype": "torch.bfloat16", "batch": b, "seq": t, "nq": nq, "nkv": nkv,
+                "dh": dh, "bit_identical": same,
+            })
+            print(json.dumps(results[-1]), flush=True)
+    return results, ok
+
+
+def time_f32_bwd(builds, reps: int = 20) -> None:
+    """CUDA-event ms per launch of both builds' float32 backward entries at
+    the training shape, in turns: other, this, this, other."""
+    inputs = bwd_inputs(*BWD_SHAPES[0], torch.float32)
+    for dq_entry in (True, False):
+        times = []
+        for tag in ("other", "this", "this", "other"):
+            lib = builds[tag]["flash_attention_bwd"][0]
+            run_bwd(lib, inputs, dq_entry)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                run_bwd(lib, inputs, dq_entry)
+            end.record()
+            torch.cuda.synchronize()
+            times.append((tag, start.elapsed_time(end) / reps))
+        print(json.dumps({
+            "kernel": BWD_ENTRIES[torch.float32][0 if dq_entry else 1],
+            "shape": BWD_SHAPES[0], "ms_in_turns": times,
+        }), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="root of the other tree")
@@ -239,12 +359,15 @@ def main() -> int:
                 "bit_identical": same,
             })
             print(json.dumps(results[-1]), flush=True)
-    flash_results, flash_ok = compare_flash(builds)
-    results += flash_results
-    ok &= flash_ok
+    for compare in (compare_flash, compare_bwd):
+        more, more_ok = compare(builds)
+        results += more
+        ok &= more_ok
+    time_f32_bwd(builds)
     for tag, libs in builds.items():
-        for kernel, (_, regs) in libs.items():
-            print(f"{tag} {kernel}: {regs}", flush=True)
+        for kernel, (_, functions) in libs.items():
+            for line in functions:
+                print(f"{tag} {kernel}: {line}", flush=True)
     print(json.dumps({"bit_identical": ok, "card": card}))
     return 0 if ok else 1
 

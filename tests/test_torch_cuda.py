@@ -472,13 +472,18 @@ def test_flash_lse_matches_plain_and_keeps_out(cuda, b, t, nq, nkv, dh, lengths,
         (4, 256, 4, 2, 128, [1, 63, 200, 256]),
         (3, 128, 4, 4, 64, [128, 100, 1]),
         (2, 192, 6, 2, 64, [192, 130]),
+        (2, 192, 4, 4, 128, [1, 192]),
+        (2, 384, 8, 2, 128, [250, 384]),
+        (2, 384, 4, 1, 64, [1, 300]),
     ],
 )
 def test_flash_backward_matches_plain(cuda, b, t, nq, nkv, dh, lengths, dtype):
     """dq and dk/dv kernels against ``attention_flash_bwd_plain`` on the same
     residuals, within ``bwd_kernel_tolerance`` (derived there), with a
     right-padded, a left-padded and a one-token row and dO zero on pad
-    rows: every gradient finite, one launch each."""
+    rows: every gradient finite, one launch each. The float32 kernels work
+    on blocks of 128 rows: T = 192 ends in a half block, T = 384 has three
+    blocks, and the cases hold DH 64 and 128 and groups of 1 to 4."""
     q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, lengths, seed=11 + dh, dtype=dtype)
     mask = _left_pad(mask, b - 1, 66)
     scale = dh**-0.5
@@ -501,6 +506,30 @@ def test_flash_backward_matches_plain(cuda, b, t, nq, nkv, dh, lengths, dtype):
         assert bool(torch.isfinite(got).all()), name
         err = float((got.float() - ref.float()).abs().max())
         assert err <= tol, (name, err, tol)
+
+
+def test_flash_backward_f32_is_the_same_in_every_repeated_launch(cuda):
+    """The float32 dq and dk/dv kernels sum in a fixed order (no atomics),
+    so 50 launches on the same inputs give the first launch's bits, each of
+    them: a check of one launch could miss a fault that shows in 1 launch
+    of 30."""
+    b, t, nq, nkv, dh = 4, 256, 16, 8, 128
+    q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, [256, 1, 130, 200], seed=13,
+                                  dtype=torch.float32)
+    mask = _left_pad(mask, b - 1, 66)
+    scale = dh**-0.5
+    out, lse = FA.attention_flash(q, k, v, mask, scale, with_lse=True)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    dout = (torch.randn(out.shape, generator=gen, device=cuda) * mask[..., None]).contiguous()
+    di = FA.row_dot(out, dout, nq)
+    args = (q, k, v, mask, dout, lse, di, scale)
+    first = (FA.attention_flash_bwd_dq(*args), *FA.attention_flash_bwd_dkv(*args))
+    differing = 0
+    for _ in range(50):
+        again = (FA.attention_flash_bwd_dq(*args), *FA.attention_flash_bwd_dkv(*args))
+        differing += not all(torch.equal(x, y) for x, y in zip(first, again))
+    torch.cuda.synchronize()
+    assert differing == 0
 
 
 def test_flash_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
