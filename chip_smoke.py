@@ -14,7 +14,11 @@ Phases, each announced before it starts and timed after it ends:
    (its carry equal to bin_topk's kernel carry bit for bit, for 2, 3 and 4
    ring stages, and timed beside it), bin_topk_int8, windowed_scores over a bf16
    and a float32 corpus, and flash_attention over bf16 and float32 inputs
-   at the Qwen3-0.6B serving geometry; then K5's backward kernels (dq and
+   at the Qwen3-0.6B geometry, at the serving shape (B 64 x T 512) and the
+   training shape (B 32 x T 256), and on the masks of the paths it serves
+   (4d's embed batch, 5b's documents, full rows), each timed beside its
+   bound and SDPA;
+   then K5's backward kernels (dq and
    dk/dv, float32 and bf16) and its forward's lse at the training shape
    (B 32 x T 256) and at B 64 x T 512, timed at the training shape beside
    SDPA's backward (dq and dk/dv together too, as "pair ms / library ms");
@@ -765,6 +769,23 @@ def flash_inputs(
     return q, k, v, mask
 
 
+def serving_flash_mask(device) -> torch.Tensor:
+    """The serving shape's 0/1 mask [64, 512]: ragged right-padded lengths
+    (1..512, from a seed) and a left-padded last row, whose first key tiles
+    lie wholly in the other segment, so the running max must recover from
+    the mask value."""
+    gen = torch.Generator().manual_seed(50)
+    ragged = [1, 255, 256, 257, 512, 64, 65, 128, 383, 384]
+    lengths = ragged + torch.randint(
+        1, FLASH_T + 1, (FLASH_B - len(ragged),), generator=gen
+    ).tolist()
+    lens = torch.tensor(lengths, device=device)
+    mask = (torch.arange(FLASH_T, device=device)[None, :] < lens[:, None]).to(torch.int32)
+    mask[-1] = 0
+    mask[-1, 130:] = 1
+    return mask
+
+
 def _check_flash_case(name, q, k, v, mask) -> float:
     """Kernel vs plain on one input, within
     ``ops.flash_attention.kernel_tolerance`` (derived there); returns the
@@ -791,34 +812,16 @@ def _check_flash_case(name, q, k, v, mask) -> float:
     return err
 
 
-def check_flash_attention(device, dtype=torch.bfloat16) -> dict:
+def _time_flash(q, k, v, mask, reps: int = 20) -> dict:
+    """CUDA-event ms of the forward kernel and of SDPA (the yardstick the
+    port never calls: [B, H, T, DH] views, the same boolean mask, causal and
+    same segment, grouped kv heads) on one input, and the bound from it."""
     import torch.nn.functional as nnf
 
     from lean_explore_tpu_torch.ops import flash_attention as FA
 
-    f32 = dtype == torch.float32
-    gen = torch.Generator().manual_seed(50)
-    ragged = [1, 255, 256, 257, 512, 64, 65, 128, 383, 384]
-    lengths = ragged + torch.randint(
-        1, FLASH_T + 1, (FLASH_B - len(ragged),), generator=gen
-    ).tolist()
-    q, k, v, mask = flash_inputs(FLASH_B, FLASH_T, lengths, 51, device, dtype)
-    # One left-padded row: its first key block lies wholly in the other
-    # segment, so the running max must recover from the mask value.
-    mask[-1] = 0
-    mask[-1, 130:] = 1
-    err = _check_flash_case("serving shape, ragged lengths 1..512", q, k, v, mask)
-    for label, lens in (("B=1 T=256 full", [256]), ("B=1 T=256 length 200", [200])):
-        err = max(
-            err, _check_flash_case(label, *flash_inputs(1, 256, lens, 52, device, dtype))
-        )
-
     scale = FLASH_DH**-0.5
-    reps = 20
     ms = cuda_ms(lambda: FA.attention_flash(q, k, v, mask, scale), reps)
-    plain_ms = cuda_ms(lambda: FA.attention_flash_plain(q, k, v, mask, scale), 3)
-    # Yardstick the port never calls: SDPA on [B, H, T, DH] views with the
-    # same boolean mask (causal and same segment) and grouped kv heads.
     allowed = FA.allowed_keys(mask)[:, None]
 
     def library():
@@ -833,14 +836,60 @@ def check_flash_attention(device, dtype=torch.bfloat16) -> dict:
     bytes_moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + mask.numel() * 4
     pairs = float(allowed.sum())
     flops = 4.0 * FLASH_DH * FLASH_NQ * pairs
-    b_ms, b_by = bound_ms(bytes_moved, flops, TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    rate = TF32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
+    b_ms, b_by = bound_ms(bytes_moved, flops, rate)
+    return {"ms": ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "mb": bytes_moved / 1e6, "gflop": flops / 1e9, "pairs": pairs}
+
+
+def check_flash_attention(device, dtype=torch.bfloat16) -> dict:
+    """K5's forward against its plain twin at the serving shape (B 64 x
+    T 512, ragged lengths and a left-padded row), the training shape (B 32
+    x T 256, the backward check's mask), two B 1 x T 256 cases and the
+    workload masks (``workload_flash_masks``, on the inputs of their
+    shape); timed at both large shapes and on the workload masks beside the
+    bound and SDPA (the row's numbers are the serving shape's; the training
+    shape's follow under "training_shape", each workload mask's under
+    "<label>_mask")."""
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
+    f32 = dtype == torch.float32
+    q, k, v, _ = flash_inputs(FLASH_B, FLASH_T, [FLASH_T] * FLASH_B, 51, device, dtype)
+    mask = serving_flash_mask(device)
+    err = _check_flash_case("serving shape, ragged lengths 1..512", q, k, v, mask)
+    train = flash_inputs(TRAIN_B, TRAIN_T, [TRAIN_T] * TRAIN_B, 70, device, dtype)[:3]
+    train_mask = training_flash_mask(TRAIN_B, TRAIN_T, 70, device)
+    err = max(err, _check_flash_case("training shape, ragged and left-padded", *train,
+                                     train_mask))
+    for label, lens in (("B=1 T=256 full", [256]), ("B=1 T=256 length 200", [200])):
+        err = max(
+            err, _check_flash_case(label, *flash_inputs(1, 256, lens, 52, device, dtype))
+        )
+    # The workload masks take the inputs of their shape.
+    workloads = [
+        (label, train if wmask.shape[0] == TRAIN_B else (q, k, v), wmask)
+        for label, wmask in workload_flash_masks(device).items()
+    ]
+    for label, inputs, wmask in workloads:
+        err = max(err, _check_flash_case(f"{label} mask", *inputs, wmask))
+
+    scale = FLASH_DH**-0.5
+    serving = _time_flash(q, k, v, mask)
+    training = _time_flash(*train, train_mask)
+    on_workloads = {label: _time_flash(*inputs, wmask) for label, inputs, wmask in workloads}
+    plain_ms = cuda_ms(lambda: FA.attention_flash_plain(q, k, v, mask, scale), 3)
     name = "flash_attention_f32" if f32 else "flash_attention"
-    log(
-        f"  {name} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"scaled_dot_product_attention(bool mask) {library_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by} ({bytes_moved / 1e6:.1f} MB, "
-        f"{flops / 1e9:.1f} GFLOP over {pairs:.0f} allowed pairs)"
-    )
+    timed = [("B=64 T=512", serving), ("B=32 T=256", training)]
+    timed += [(f"the {label} mask", t) for label, t in on_workloads.items()]
+    for shape, t in timed:
+        log(
+            f"  {name} at {shape}: kernel {t['ms']:.4f} ms, library "
+            f"scaled_dot_product_attention(bool mask) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['mb']:.1f} MB, "
+            f"{t['gflop']:.1f} GFLOP over {t['pairs']:.0f} allowed pairs)"
+            + (f", plain {plain_ms:.4f} ms" if t is serving else "")
+        )
+    del train, train_mask, workloads
     return {
         "name": name,
         "route": "cuda",
@@ -851,11 +900,18 @@ def check_flash_attention(device, dtype=torch.bfloat16) -> dict:
         ),
         "launches": None,
         "max_abs_err": err,
-        "ms": ms,
+        "ms": serving["ms"],
         "plain_ms": plain_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": library_ms,
+        "bound_ms": serving["bound_ms"],
+        "bound_by": serving["bound_by"],
+        "library_ms": serving["library_ms"],
+        "training_shape": {
+            key: training[key] for key in ("ms", "library_ms", "bound_ms", "bound_by")
+        },
+        **{
+            f"{label}_mask": {key: t[key] for key in ("ms", "library_ms", "bound_ms", "bound_by")}
+            for label, t in on_workloads.items()
+        },
     }
 
 
@@ -866,7 +922,7 @@ def check_flash_attention(device, dtype=torch.bfloat16) -> dict:
 TRAIN_B, TRAIN_T = 32, 256
 
 
-def _train_mask(batch: int, seq: int, seed: int, device) -> torch.Tensor:
+def training_flash_mask(batch: int, seq: int, seed: int, device) -> torch.Tensor:
     """Ragged right-padded lengths, a one-token row and a left-padded row
     (its first key blocks wholly in the other segment)."""
     gen = torch.Generator().manual_seed(seed)
@@ -880,6 +936,31 @@ def _train_mask(batch: int, seq: int, seed: int, device) -> torch.Tensor:
     return mask
 
 
+def document_flash_mask(n_docs: int, lo: int, hi: int, seed: int, seq: int,
+                        device) -> torch.Tensor:
+    """The 0/1 mask [n_docs, seq] of ``long_documents(n_docs, lo, hi, seed)``
+    as the clients and the trainer encode them: one token a word, then the
+    EOS, right-padded. With phase 4d's arguments (64, 300, 511, 60, 512) it
+    is the flash ``embed_sync`` batch's mask; with phase 5b's (TRAIN_B, 200,
+    250, 80, 256) the mask of TRAIN_B of the CLI's documents."""
+    lens = torch.tensor(
+        [len(doc.split()) + 1 for doc in long_documents(n_docs, lo, hi, seed)], device=device
+    )
+    return (torch.arange(seq, device=device)[None, :] < lens[:, None]).to(torch.int32)
+
+
+def workload_flash_masks(device) -> dict[str, torch.Tensor]:
+    """The masks of the paths the forward serves, beside the checks' ragged
+    ones: 4d's embed batch (B 64 x T 512, 301-511 tokens a row), 5b's
+    documents (B 32 x T 256, 201-250) and full rows at the training shape
+    (a bucket that its documents fill)."""
+    return {
+        "embed_4d": document_flash_mask(FLASH_DOCS, 300, 511, 60, FLASH_T, device),
+        "train_5b": document_flash_mask(TRAIN_B, 200, 250, 80, TRAIN_T, device),
+        "train_full": torch.ones(TRAIN_B, TRAIN_T, dtype=torch.int32, device=device),
+    }
+
+
 def _check_flash_bwd_case(name, batch, seq, seed, device, dtype) -> tuple:
     """Forward with lse and both backward kernels against the plain twins
     on one input: out equal bit for bit with and without lse, lse within
@@ -889,7 +970,7 @@ def _check_flash_bwd_case(name, batch, seq, seed, device, dtype) -> tuple:
     from lean_explore_tpu_torch.ops import flash_attention as FA
 
     q, k, v, _ = flash_inputs(batch, seq, [seq] * batch, seed, device, dtype)
-    mask = _train_mask(batch, seq, seed, device)
+    mask = training_flash_mask(batch, seq, seed, device)
     scale = FLASH_DH**-0.5
     out = FA.attention_flash(q, k, v, mask, scale)
     out_lse, lse = FA.attention_flash(q, k, v, mask, scale, with_lse=True)

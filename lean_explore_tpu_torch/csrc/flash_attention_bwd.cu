@@ -374,32 +374,6 @@ int launch_bwd(const BwdArgs& a, int B, void* stream) {
 // ---------------------------------------------------------------------
 // float32: 3xTF32 kernels of eight warps on swizzled tiles (the note above).
 
-constexpr int F32_ROWS = 128;     // keys (dk/dv) or queries (dq) of a block
-constexpr int F32_THREADS = 256;  // eight warps of 16 rows
-constexpr int STREAM_ROWS = 32;   // rows of a streamed tile
-
-// Shared memory of an f32 block: two fixed tiles of F32_ROWS rows (K and V
-// in dk/dv, Q and dO in dq), the copies of a streamed pair of 32-row tiles
-// (Q and dO, or K and V), their tf32 hi and lo tiles, and per streamed
-// tile, in two buffers, its rows' lse, di and segment ids (dq reads the
-// ids only).
-template <int DH>
-struct F32Shape {
-  static constexpr int FIXED = F32_ROWS * DH * 4;
-  static constexpr int STREAM = STREAM_ROWS * DH * 4;
-  static constexpr int RAW = 2 * FIXED;                // two streamed copies
-  static constexpr int SPLIT = RAW + 2 * STREAM;       // hi, lo of each
-  static constexpr int ROWS = SPLIT + 4 * STREAM;      // [2][lse, di, seg][32]
-  static constexpr int BYTES = ROWS + 2 * 3 * STREAM_ROWS * 4;
-  static_assert(BYTES <= 232448, "an f32 backward block exceeds shared memory");
-};
-
-// 4-byte async copy (lse, di and segment ids need no more than their own
-// alignment).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
 // probabilities over a warp's 16 x 32 score fragment: s[j][e] (row
 // row0 + g + (e >> 1) * 8, column col0 + 8j + 2t + (e & 1)), with the rows'
 // segment ids row_seg and the 32 columns' col_seg. KEY_ROWS (dk/dv): the
@@ -452,48 +426,6 @@ __device__ __forceinline__ void score_grads_f32(float (&dp)[4][4], const float (
       const float di = KEY_ROWS ? di_cols[8 * j + 2 * t + (e & 1)] : di_rows[e >> 1];
       dp[j][e] = sm_scale * p[j][e] * (dp[j][e] - di);
     }
-}
-
-// The streamed pair of one iteration: both 32-row tiles by cp.async (the
-// rows of tile `first` and of `second`, row stride `stride` bytes) and the
-// staged values of its rows into buffer buf: lse and di (when lse is not
-// null; rows [lse_row, +32) of [B, NQ, T]) and the segment ids from seg.
-template <int DH>
-__device__ __forceinline__ void load_stream(uint8_t* smem, const uint8_t* first,
-                                            const uint8_t* second, long long stride,
-                                            const float* lse, const float* di,
-                                            long long lse_row, const int* seg, int buf,
-                                            int tid) {
-  using S = F32Shape<DH>;
-  load_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW, first, stride, STREAM_ROWS, tid);
-  load_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW + S::STREAM, second, stride,
-                                             STREAM_ROWS, tid);
-  float* rows = reinterpret_cast<float*>(smem + S::ROWS) + buf * 3 * STREAM_ROWS;
-  const int r = tid % STREAM_ROWS;
-  if (tid < STREAM_ROWS) {
-    cp_async4(rows + 2 * STREAM_ROWS + r, seg + r);
-  } else if (lse != nullptr && tid < 3 * STREAM_ROWS) {
-    const bool is_lse = tid < 2 * STREAM_ROWS;
-    cp_async4(rows + (is_lse ? 0 : STREAM_ROWS) + r, (is_lse ? lse : di) + lse_row + r);
-  }
-}
-
-// The top of every iteration: waits for this thread's copies of the
-// streamed pair, and, once no warp reads the hi and lo tiles of the last
-// pair any more, splits its own chunks of this pair into them.
-template <int DH>
-__device__ __forceinline__ void split_stream(uint8_t* smem, int tid) {
-  using S = F32Shape<DH>;
-  cp_async_wait_all();
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    split_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW + i * S::STREAM,
-                                                smem + S::SPLIT + 2 * i * S::STREAM,
-                                                smem + S::SPLIT + (2 * i + 1) * S::STREAM, tid);
-  }
-  // The next pair's cp.async rewrites these chunks: keep the reads above it.
-  asm volatile("" ::: "memory");
 }
 
 template <int DH>

@@ -2,22 +2,25 @@
 // forward (flash_attention.cu) and the backward's dq and dk/dv kernels
 // (flash_attention_bwd.cu).
 //
-// A forward tile, and a bf16 backward tile, is 64 rows of DH values of
-// ELEM bytes (bf16: 2, f32: 4), copied from device memory by cp.async into
-// shared memory whose rows are padded by 16 bytes, so that ldmatrix (8 rows
-// of 16 bytes at a stride of 4 banks mod 32) is free of bank conflicts.
-// The bf16 backward's products are of two shapes over a warp's 16 rows:
+// A bf16 tile is rows of DH values copied from device memory by cp.async
+// into shared memory whose rows are padded by 16 bytes, so that ldmatrix
+// (8 rows of 16 bytes at a stride of 4 banks mod 32) is free of bank
+// conflicts. The bf16 products are of two shapes over a warp's MT tiles of
+// 16 rows, which share every B fragment (the forward takes MT = 2, the
+// backward 1):
 //
-//   rows_x_rows: acc[16 x 64] += A[16 x DH] . B[64 x DH]^T, both tiles with
-//     the depth contiguous (S = Q K^T, dP = dO V^T and their transposes);
-//   acc_x_tile:  out[16 x DH] += X[16 x 64] . B[64 x DH], X an accumulator
-//     left in registers and B row-major over its 64 rows (dV += P^T dO,
-//     dK += dS^T Q, dQ += dS K);
+//   rows_x_rows_m: acc[16 x 8NT] += A[16 x DH] . B[8NT x DH]^T, both tiles
+//     with the depth contiguous (S = Q K^T, dP = dO V^T and their
+//     transposes);
+//   acc_x_tile_m:  out[16 x DH] += X[16 x DEPTH] . B[DEPTH x DH], X an
+//     accumulator left in registers and B row-major over its DEPTH rows
+//     (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K);
 //
-// on mma.sync m16n8k16 with f32 accumulation. The f32 backward runs the
-// same two shapes as 3xTF32 (m16n8k8) on unpadded, swizzled tiles
+// on mma.sync m16n8k16 with f32 accumulation. The f32 kernels run the same
+// two shapes as 3xTF32 (m16n8k8) on unpadded, swizzled tiles
 // (rows_x_rows_f32, acc_x_tile_f32, below), whose layout serves ldmatrix
-// and the 16-byte loads of acc_x_tile_f32 alike.
+// and the 16-byte loads of acc_x_tile_f32 alike, with the streamed tiles
+// split into tf32 hi and lo once (load_stream, split_stream).
 
 #pragma once
 
@@ -46,89 +49,111 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Shared memory of a forward block: a Q tile, two K and two V tiles of 64
-// rows of DH values of ELEM bytes, then the batch row's segment ids. Q and
-// K rows are padded by 16 bytes; f32 V rows by 32 bytes (the scalar loads
-// of a B fragment read rows t and columns g: 8t + g covers the 32 banks).
+// Padded tiles of 64 rows of DH values of ELEM bytes.
 template <int DH, int ELEM>
 struct FlashShape {
   static constexpr int ROW = DH * ELEM + 16;
-  static constexpr int ROW_V = ELEM == 2 ? ROW : DH * ELEM + 32;
   static constexpr int TILE = FA_BLOCK * ROW;
-  static constexpr int TILE_V = FA_BLOCK * ROW_V;
   static constexpr int CHUNKS = DH * ELEM / 16;  // 16-byte chunks per row
-  static size_t smem_bytes(int T) {
-    return 3 * TILE + 2 * TILE_V + sizeof(int) * (size_t)T;
-  }
   // A bf16 backward block: two fixed tiles and two double-buffered
   // streams, all of row stride ROW, then the segment ids.
   static size_t bwd_smem_bytes(int T) { return 6 * TILE + sizeof(int) * (size_t)T; }
 };
 
-// cp.async of 64 rows of DH * ELEM bytes (row stride `stride` bytes) into a
-// tile of row stride ROW.
-template <int DH, int ELEM, int ROW>
+// cp.async of rows [0, n_rows) of ROWS rows of DH * ELEM bytes (row
+// stride `stride` bytes) into a tile of row stride ROW, by THREADS threads;
+// rows from n_rows on are left as they are. A caller that copies every row
+// leaves n_rows at ROWS, and the row test folds away.
+template <int DH, int ELEM, int ROW, int ROWS = FA_BLOCK, int THREADS = FA_THREADS>
 __device__ __forceinline__ void load_tile(uint8_t* tile, const uint8_t* rows,
-                                          long long stride, int tid) {
+                                          long long stride, int tid, int n_rows = ROWS) {
   constexpr int CHUNKS = FlashShape<DH, ELEM>::CHUNKS;
 #pragma unroll
-  for (int i = 0; i < FA_BLOCK * CHUNKS / FA_THREADS; ++i) {
-    const int c = tid + i * FA_THREADS;
+  for (int i = 0; i < ROWS * CHUNKS / THREADS; ++i) {
+    const int c = tid + i * THREADS;
     const int r = c / CHUNKS;
     const int col = (c % CHUNKS) * 16;
-    cp_async16(tile + r * ROW + col, rows + r * stride + col, 16);
+    if (n_rows == ROWS || r < n_rows) cp_async16(tile + r * ROW + col, rows + r * stride + col, 16);
   }
 }
 
-// acc[16 x 64] += A[row0 .. row0 + 16) . B[0 .. 64)^T over DH, bf16: A and
-// B are tiles of row stride ROW with the depth contiguous. The A fragment
-// of a k-step is rows row0 + (lane & 15), bytes (lane >> 4) * 16 of the
-// slice; the B fragments of n-tiles 2nj, 2nj + 1 are rows nj * 16 +
-// (lane & 7) + (lane >> 4) * 8, bytes ((lane >> 3) & 1) * 16.
-template <int DH, int ROW>
-__device__ __forceinline__ void rows_x_rows(float (&acc)[8][4], const uint8_t* a_tile, int row0,
-                                            const uint8_t* b_tile, int lane) {
+// acc[m][16 x 8NT] += A[row0 + 16m .. + 16) . B[0 .. 8NT)^T over DH, bf16,
+// for MT tiles of 16 rows that share every B fragment: A and B are tiles of
+// row stride ROW with the depth contiguous. The A fragment of a k-step is
+// rows row0 + 16m + (lane & 15), bytes (lane >> 4) * 16 of the slice; the
+// B fragments of n-tiles 2nj, 2nj + 1 are rows nj * 16 + (lane & 7) +
+// (lane >> 4) * 8, bytes ((lane >> 3) & 1) * 16.
+template <int DH, int ROW, int MT, int NT>
+__device__ __forceinline__ void rows_x_rows_m(float (&acc)[MT][NT][4], const uint8_t* a_tile,
+                                              int row0, const uint8_t* b_tile, int lane) {
   constexpr int KSTEPS = DH * 2 / 32;
   const uint8_t* a_rows = a_tile + (row0 + (lane & 15)) * ROW + (lane >> 4) * 16;
   const uint8_t* b_rows = b_tile + ((lane & 7) + (lane >> 4) * 8) * ROW + ((lane >> 3) & 1) * 16;
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_rows + kk * 32);
+    uint32_t a[MT][4];
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
+    for (int m = 0; m < MT; ++m) ldmatrix_x4(a[m], a_rows + m * 16 * ROW + kk * 32);
+#pragma unroll
+    for (int nj = 0; nj < NT / 2; ++nj) {
       uint32_t b[4];
       ldmatrix_x4(b, b_rows + nj * 16 * ROW + kk * 32);
-      Bf16Product::mma(acc[2 * nj], a, b[0], b[1]);
-      Bf16Product::mma(acc[2 * nj + 1], a, b[2], b[3]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        Bf16Product::mma(acc[m][2 * nj], a[m], b[0], b[1]);
+        Bf16Product::mma(acc[m][2 * nj + 1], a[m], b[2], b[3]);
+      }
     }
   }
 }
 
-// out[16 x DH] += X[16 x 64] . B[64 x DH], bf16: X in the m16n8 accumulator
-// layout (x[j][e]: row g + (e >> 1) * 8, column j * 8 + 2t + (e & 1)), B a
-// tile of row stride ROW whose 64 rows are the depth. n-tiles 2c and 2c + 1
+// acc[16 x 64] += A[row0 .. row0 + 16) . B[0 .. 64)^T: the backward's one tile.
+template <int DH, int ROW>
+__device__ __forceinline__ void rows_x_rows(float (&acc)[8][4], const uint8_t* a_tile, int row0,
+                                            const uint8_t* b_tile, int lane) {
+  rows_x_rows_m<DH, ROW, 1, 8>(*reinterpret_cast<float(*)[1][8][4]>(&acc), a_tile, row0, b_tile,
+                               lane);
+}
+
+// out[m][16 x DH] += X[m][16 x DEPTH] . B[DEPTH x DH], bf16, for MT tiles of
+// 16 rows that share every B fragment: X in the m16n8 accumulator layout
+// (x[m][j][e]: row g + (e >> 1) * 8, column j * 8 + 2t + (e & 1)), B a tile
+// of row stride ROW whose DEPTH rows are the depth. n-tiles 2c and 2c + 1
 // of X, rounded to bf16, are exactly the A fragment of k16 chunk c, and B^T
 // comes by ldmatrix.trans.
-template <int DH, int ROW>
-__device__ __forceinline__ void acc_x_tile(float (&out)[DH / 8][4], const float (&x)[8][4],
-                                           const uint8_t* b_tile, int lane) {
-  uint32_t xf[4][4];
+template <int DH, int ROW, int MT, int DEPTH>
+__device__ __forceinline__ void acc_x_tile_m(float (&out)[MT][DH / 8][4],
+                                             const float (&x)[MT][DEPTH / 8][4],
+                                             const uint8_t* b_tile, int lane) {
+  uint32_t xf[MT][DEPTH / 16][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    xf[j >> 1][(j & 1) * 2] = pack_bf16(x[j][0], x[j][1]);
-    xf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[j][2], x[j][3]);
-  }
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+    for (int j = 0; j < DEPTH / 8; ++j) {
+      xf[m][j >> 1][(j & 1) * 2] = pack_bf16(x[m][j][0], x[m][j][1]);
+      xf[m][j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[m][j][2], x[m][j][3]);
+    }
+#pragma unroll
+  for (int c = 0; c < DEPTH / 16; ++c)
 #pragma unroll
     for (int np = 0; np < DH / 16; ++np) {
       uint32_t b[4];
       ldmatrix_x4_trans(b, b_tile + (c * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ROW +
                                (np * 16 + (lane >> 4) * 8) * 2);
-      Bf16Product::mma(out[2 * np], xf[c], b[0], b[1]);
-      Bf16Product::mma(out[2 * np + 1], xf[c], b[2], b[3]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        Bf16Product::mma(out[m][2 * np], xf[m][c], b[0], b[1]);
+        Bf16Product::mma(out[m][2 * np + 1], xf[m][c], b[2], b[3]);
+      }
     }
+}
+
+// out[16 x DH] += X[16 x 64] . B[64 x DH]: the backward's one tile.
+template <int DH, int ROW>
+__device__ __forceinline__ void acc_x_tile(float (&out)[DH / 8][4], const float (&x)[8][4],
+                                           const uint8_t* b_tile, int lane) {
+  acc_x_tile_m<DH, ROW, 1, 64>(*reinterpret_cast<float(*)[1][DH / 8][4]>(&out),
+                               *reinterpret_cast<const float(*)[1][8][4]>(&x), b_tile, lane);
 }
 
 // Writes this thread's part of a warp's 16 x DH accumulator to rows row_lo
@@ -333,6 +358,80 @@ __device__ __forceinline__ void store_rows_f32(float* dst, long long stride, int
             make_float4(acc[n][e], acc[n + 1][e], acc[n + 2][e], acc[n + 3][e]);
       }
   }
+}
+
+// ---------------------------------------------------------------------
+// The f32 kernels' blocks: eight warps over F32_ROWS fixed rows, the other
+// operands streamed as 32-row tiles that are split once into tf32 hi and lo
+// tiles in shared memory (flash_attention_bwd.cu's note; the forward takes
+// the same staging).
+
+constexpr int F32_ROWS = 128;     // fixed rows of a block: queries or keys
+constexpr int F32_THREADS = 256;  // eight warps of 16 rows
+constexpr int STREAM_ROWS = 32;   // rows of a streamed tile
+
+// Shared memory of an f32 block: FIXED_TILES fixed tiles of F32_ROWS rows
+// (the forward's Q; K and V in dk/dv, Q and dO in dq), the copies of a
+// streamed pair of 32-row tiles (K and V, or Q and dO), their tf32 hi and
+// lo tiles, and per streamed tile, in two buffers, its rows' lse, di and
+// segment ids (the forward and dq read the ids only).
+template <int DH, int FIXED_TILES = 2>
+struct F32Shape {
+  static constexpr int FIXED = F32_ROWS * DH * 4;
+  static constexpr int STREAM = STREAM_ROWS * DH * 4;
+  static constexpr int RAW = FIXED_TILES * FIXED;      // two streamed copies
+  static constexpr int SPLIT = RAW + 2 * STREAM;       // hi, lo of each
+  static constexpr int ROWS = SPLIT + 4 * STREAM;      // [2][lse, di, seg][32]
+  static constexpr int BYTES = ROWS + 2 * 3 * STREAM_ROWS * 4;
+  static_assert(BYTES <= 232448, "an f32 block exceeds shared memory");
+};
+
+// 4-byte async copy (lse, di and segment ids need no more than their own
+// alignment).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// The streamed pair of one iteration: both 32-row tiles by cp.async (the
+// rows of tile `first` and of `second`, row stride `stride` bytes) and the
+// staged values of its rows into buffer buf: lse and di (when lse is not
+// null; rows [lse_row, +32) of [B, NQ, T]) and the segment ids from seg.
+template <int DH, int FIXED_TILES = 2>
+__device__ __forceinline__ void load_stream(uint8_t* smem, const uint8_t* first,
+                                            const uint8_t* second, long long stride,
+                                            const float* lse, const float* di,
+                                            long long lse_row, const int* seg, int buf,
+                                            int tid) {
+  using S = F32Shape<DH, FIXED_TILES>;
+  load_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW, first, stride, STREAM_ROWS, tid);
+  load_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW + S::STREAM, second, stride,
+                                             STREAM_ROWS, tid);
+  float* rows = reinterpret_cast<float*>(smem + S::ROWS) + buf * 3 * STREAM_ROWS;
+  const int r = tid % STREAM_ROWS;
+  if (tid < STREAM_ROWS) {
+    cp_async4(rows + 2 * STREAM_ROWS + r, seg + r);
+  } else if (lse != nullptr && tid < 3 * STREAM_ROWS) {
+    const bool is_lse = tid < 2 * STREAM_ROWS;
+    cp_async4(rows + (is_lse ? 0 : STREAM_ROWS) + r, (is_lse ? lse : di) + lse_row + r);
+  }
+}
+
+// The top of every iteration: waits for this thread's copies of the
+// streamed pair, and, once no warp reads the hi and lo tiles of the last
+// pair any more, splits its own chunks of this pair into them.
+template <int DH, int FIXED_TILES = 2>
+__device__ __forceinline__ void split_stream(uint8_t* smem, int tid) {
+  using S = F32Shape<DH, FIXED_TILES>;
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    split_rows_f32<DH, STREAM_ROWS, F32_THREADS>(smem + S::RAW + i * S::STREAM,
+                                                smem + S::SPLIT + 2 * i * S::STREAM,
+                                                smem + S::SPLIT + (2 * i + 1) * S::STREAM, tid);
+  }
+  // The next pair's cp.async rewrites these chunks: keep the reads above it.
+  asm volatile("" ::: "memory");
 }
 
 }  // namespace

@@ -34,7 +34,8 @@ from lean_explore_tpu_torch.ops.cuda_build import load_library
 # The TPU kernel's mask value (DEFAULT_MASK_VALUE): finite, so that a row
 # whose keys in some block are all masked gives no NaN.
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# Queries per kernel block and keys per key block (csrc/flash_attention.cu).
+# T must be a multiple of BLOCK: the kernels run 128-query blocks, the last
+# of which may be half full (csrc/flash_attention.cu).
 BLOCK = 64
 HEAD_DIMS = (64, 128)
 # The input dtypes the kernel takes, with the entry point of each.
@@ -239,8 +240,8 @@ def kernel_tolerance(q, k, v, out) -> float:
     2^-9 of p, so each side's PV lies within 2^-9 * max|v| of the exact
     one: 2^-8 * max|v| for the two. Each output is then rounded to bf16,
     within half an ulp, 2^-8 |out|, each side: 2^-7 * max|out|. The f32 sums
-    in other orders and exp2f against exp move p by under 1e-4 relative
-    (scores of magnitude <= 16 at DH = 128), covered by another
+    in other orders and the kernel's exp2 against exp move p by under 1e-4
+    relative (scores of magnitude <= 16 at DH = 128), covered by another
     2^-8 * max|v|. So 2^-7 * (max|v| + max|out|), about two bf16 ulps of
     the output's magnitude.
 
@@ -249,8 +250,8 @@ def kernel_tolerance(q, k, v, out) -> float:
     twin's (``ops.bin_topk.score_tolerance``'s terms, scaled by the rows'
     norms), which moves each softmax weight by a factor within
     exp(+-2 eps), so the output by at most 2 eps * max|v|; doubled to
-    4 eps for exp2f against exp. PV is a 3xTF32 sum over up to T keys
-    (truncating tensor-core sums, rescaled f32 accumulators), within
+    4 eps for the kernel's exp2 against exp. PV is a 3xTF32 sum over up to
+    T keys (truncating tensor-core sums, rescaled f32 accumulators), within
     (3 * 2^-22 + 7 * T * 2^-24) * max|v| of the twin's, and the division
     adds 2^-22 * max|out|.
     """

@@ -1,6 +1,6 @@
-"""Do the port's retrieval kernels and its flash-attention forward and
-bf16 backward give the same bits as another tree's build of them? On one
-GPU.
+"""Do the port's retrieval kernels and its flash-attention bf16 backward
+give the same bits as another tree's build of them, and are both builds'
+flash-attention forwards right and how fast? On one GPU.
 
     python3 scripts/compare_torch_kernel_builds.py --other unpacked/parent
 
@@ -15,19 +15,25 @@ in both on the same inputs: ``bin_topk_carry`` (bf16), ``bin_topk_carry_f32``
 (the same corpus in float32), ``bin_topk_int8_carry`` (the same corpus and
 queries quantized per row) and ``windowed_scores`` (bf16) at the serving
 shape (300,000 valid rows of a 300,032 x 1024 unit-row corpus, B = 128,
-bins = 4096, window 8) and two small shapes, and ``flash_attention_fwd``
-(bf16) and ``flash_attention_fwd_f32`` (the forward without lse) at the
-serving shape (B = 64, T = 512, 16/8 heads, DH 128, ragged lengths) and a
-small DH 64 shape, and the backward's bf16 entries ``flash_attention_bwd_dq``
-and ``flash_attention_bwd_dkv`` at the training shape (B = 32, T = 256,
-16/8 heads, DH 128, ragged and left-padded rows, dO zero on pad rows) and
-the small DH 64 shape. It prints, per kernel and shape, whether the outputs
-are equal bit for bit; then the CUDA-event mean of 20 launches of each
-build's float32 backward entries (``flash_attention_bwd_dq_f32``,
-``flash_attention_bwd_dkv_f32``) at the training shape, in turns (other,
-this, this, other); then, per kernel function of each build, the registers
-and spill bytes ``ptxas -v`` reports. Exits 1 if any output differs. Needs
-a CUDA device and nvcc; exits 2 without a device.
+bins = 4096, window 8) and two small shapes, and the backward's bf16 entries
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` at the training
+shape (B = 32, T = 256, 16/8 heads, DH 128, ragged and left-padded rows, dO
+zero on pad rows) and a small DH 64 shape; it prints, per kernel and shape,
+whether the outputs are equal bit for bit. The forwards
+(``flash_attention_fwd``, bf16, and ``flash_attention_fwd_f32``, without
+lse) sum in another order in each build by design, so each build's output
+is held instead against the plain twin ``attention_flash_plain`` within
+``ops.flash_attention.kernel_tolerance`` on valid rows, finite everywhere,
+at the serving shape (B = 64, T = 512, 16/8 heads, DH 128, ragged lengths)
+and a small DH 64 shape. Then the CUDA-event mean of 20 launches of each
+build's forwards at chip_smoke.py's serving shape (B 64 x T 512, its ragged
+and left-padded mask, then phase 4d's embed batch's mask) and training
+shape (B 32 x T 256, the backward check's mask, then 5b's documents' mask
+and full rows), and of the backward entries, bf16 and float32, at the
+training shape, each in turns (other, this, this, other); then, per kernel
+function of each build, the registers and spill bytes ``ptxas -v`` reports.
+Exits 1 if any output differs or a forward leaves its tolerance. Needs a
+CUDA device and nvcc; exits 2 without a device.
 """
 
 import argparse
@@ -199,26 +205,84 @@ def run_flash(lib, q, k, v, mask) -> torch.Tensor:
 
 
 def compare_flash(builds) -> tuple[list[dict], bool]:
-    """The flash forward of both builds, bf16 and f32, on the same inputs."""
+    """The flash forward of both builds, bf16 and f32, each held against the
+    plain twin on the same inputs."""
+    sys.path.insert(0, str(REPO))
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
     results, ok = [], True
     for b, t, nq, nkv, dh in FLASH_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(b * t + dh)
         lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
         mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(torch.int32)
         base = [torch.randn(b, t, h, dh, generator=gen, device="cuda") for h in (nq, nkv, nkv)]
+        valid = mask.bool()
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (x.to(dtype) for x in base)
-            outs = {tag: run_flash(libs["flash_attention"][0], q, k, v, mask)
-                    for tag, libs in builds.items()}
-            torch.cuda.synchronize()
-            same = torch.equal(outs["this"], outs["other"])
-            ok &= same
+            want = FA.attention_flash_plain(q, k, v, mask, dh**-0.5)[valid].float()
+            tol = FA.kernel_tolerance(q, k, v, want)
+            errs = {}
+            for tag, libs in builds.items():
+                got = run_flash(libs["flash_attention"][0], q, k, v, mask)
+                torch.cuda.synchronize()
+                finite = bool(torch.isfinite(got).all())
+                errs[tag] = float((got[valid].float() - want).abs().max()) if finite else None
+            right = all(err is not None and err <= tol for err in errs.values())
+            ok &= right
             results.append({
                 "kernel": "flash_attention", "dtype": str(dtype), "batch": b, "seq": t,
-                "nq": nq, "nkv": nkv, "dh": dh, "bit_identical": same,
+                "nq": nq, "nkv": nkv, "dh": dh, "max_abs_err": errs, "tol": tol,
+                "within_tolerance": right,
             })
             print(json.dumps(results[-1]), flush=True)
     return results, ok
+
+
+def in_turns(builds, kernel: str, run, reps: int = 20) -> list:
+    """CUDA-event ms per launch of ``run(lib)`` with each build's library of
+    ``kernel``, in turns: other, this, this, other."""
+    times = []
+    for tag in ("other", "this", "this", "other"):
+        lib = builds[tag][kernel][0]
+        run(lib)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run(lib)
+        end.record()
+        torch.cuda.synchronize()
+        times.append((tag, start.elapsed_time(end) / reps))
+    return times
+
+
+def time_forward(builds) -> None:
+    """Both builds' forwards, bf16 and f32, at chip_smoke.py's serving and
+    training shapes, on its ragged check masks and on the masks of the paths
+    the forward serves (``workload_flash_masks``), in turns."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as smoke
+
+    workloads = smoke.workload_flash_masks("cuda")
+    shapes = (
+        ("serving", smoke.FLASH_B, smoke.FLASH_T, 51, smoke.serving_flash_mask("cuda")),
+        ("serving, 4d's embed mask", smoke.FLASH_B, smoke.FLASH_T, 51, workloads["embed_4d"]),
+        ("training", smoke.TRAIN_B, smoke.TRAIN_T, 70,
+         smoke.training_flash_mask(smoke.TRAIN_B, smoke.TRAIN_T, 70, "cuda")),
+        ("training, 5b's documents", smoke.TRAIN_B, smoke.TRAIN_T, 70, workloads["train_5b"]),
+        ("training, full rows", smoke.TRAIN_B, smoke.TRAIN_T, 70, workloads["train_full"]),
+    )
+    for label, b, t, seed, mask in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, _ = smoke.flash_inputs(b, t, [t] * b, seed, "cuda", dtype)
+            times = in_turns(builds, "flash_attention",
+                             lambda lib: run_flash(lib, q, k, v, mask))
+            print(json.dumps({
+                "kernel": "flash_attention_fwd" + ("_f32" if dtype == torch.float32 else ""),
+                "shape": label, "batch": b, "seq": t, "ms_in_turns": times,
+            }), flush=True)
+            del q, k, v
 
 
 def bwd_inputs(b, t, nq, nkv, dh, dtype) -> tuple:
@@ -277,28 +341,17 @@ def compare_bwd(builds) -> tuple[list[dict], bool]:
     return results, ok
 
 
-def time_f32_bwd(builds, reps: int = 20) -> None:
-    """CUDA-event ms per launch of both builds' float32 backward entries at
-    the training shape, in turns: other, this, this, other."""
-    inputs = bwd_inputs(*BWD_SHAPES[0], torch.float32)
-    for dq_entry in (True, False):
-        times = []
-        for tag in ("other", "this", "this", "other"):
-            lib = builds[tag]["flash_attention_bwd"][0]
-            run_bwd(lib, inputs, dq_entry)
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                run_bwd(lib, inputs, dq_entry)
-            end.record()
-            torch.cuda.synchronize()
-            times.append((tag, start.elapsed_time(end) / reps))
-        print(json.dumps({
-            "kernel": BWD_ENTRIES[torch.float32][0 if dq_entry else 1],
-            "shape": BWD_SHAPES[0], "ms_in_turns": times,
-        }), flush=True)
+def time_bwd(builds) -> None:
+    """Both builds' backward entries, bf16 and float32, at the training
+    shape, in turns."""
+    for dtype, (dq, dkv) in BWD_ENTRIES.items():
+        inputs = bwd_inputs(*BWD_SHAPES[0], dtype)
+        for dq_entry in (True, False):
+            times = in_turns(builds, "flash_attention_bwd",
+                             lambda lib: run_bwd(lib, inputs, dq_entry))
+            print(json.dumps({
+                "kernel": dq if dq_entry else dkv, "shape": BWD_SHAPES[0], "ms_in_turns": times,
+            }), flush=True)
 
 
 def main() -> int:
@@ -363,12 +416,13 @@ def main() -> int:
         more, more_ok = compare(builds)
         results += more
         ok &= more_ok
-    time_f32_bwd(builds)
+    time_forward(builds)
+    time_bwd(builds)
     for tag, libs in builds.items():
         for kernel, (_, functions) in libs.items():
             for line in functions:
                 print(f"{tag} {kernel}: {line}", flush=True)
-    print(json.dumps({"bit_identical": ok, "card": card}))
+    print(json.dumps({"bit_identical_and_within_tolerance": ok, "card": card}))
     return 0 if ok else 1
 
 

@@ -1,23 +1,31 @@
-"""How many tf32 mma.sync m16n8k8 (SASS HMMA.1688.F32.TF32) can one SM of
-this GPU issue a second? The ceiling of the port's 3xTF32 kernels, which
-are built on that instruction. On one GPU.
+"""How many tf32 mma.sync m16n8k8 (SASS HMMA.1688.F32.TF32) and bf16
+mma.sync m16n8k16 (HMMA.16816.F32.BF16) can one SM of this GPU issue a
+second? The ceilings of the port's 3xTF32 and bf16 flash-attention kernels,
+which are built on those instructions. On one GPU.
 
     python3 scripts/measure_mma_tf32_rate.py [--count-only]
 
-First prints how many of these instructions K5's float32 backward kernels
-(``csrc/flash_attention_bwd.cu``) issue at the training shape (B 32 x
-T 256, 16/8 heads, DH 128), counted from their grids: the 16 x 32 tile
-pairs that each warp does not skip, times its products (3 in dq, 4 in
-dk/dv), each 3xTF32. With ``--count-only`` it stops there and needs no
-GPU. Then it writes a small
+First prints how many of these instructions K5's kernels issue, counted
+from their grids: the float32 backward (``csrc/flash_attention_bwd.cu``) at
+the training shape (B 32 x T 256, 16/8 heads, DH 128), the 16 x 32 tile
+pairs that each warp does not skip times its products (3 in dq, 4 in
+dk/dv), each 3xTF32; and the forwards (``csrc/flash_attention.cu``) at
+chip_smoke.py's serving shape (B 64 x T 512, its ragged and left-padded
+mask, then phase 4d's embed batch's mask) and training shape (B 32 x
+T 256, the backward check's mask, then 5b's documents' mask and full
+rows), the 32-key tiles that each warp (16 rows in f32, 32 in bf16) does
+not skip under the kernels' causal and segment rule times their two
+products, and the share of full rows' tiles that the segment rule skips. With
+``--count-only`` it stops there and needs no GPU. Then it writes a small
 CUDA source into ``build/mma_tf32_rate/``, builds it with the
 port's nvcc flags, and launches 4 blocks an SM, each of 128, 256 or 512
 threads, whose warps each run 2,000 rounds of 4, 8 or 16 independent
-accumulator chains of the instruction (no loads, no other work). Prints the
-card's name and power limit, then per configuration the CUDA-event time of
-5 launches after a warm one and the rate in instructions a second per SM,
-and last a JSON line with the highest rate and the time the counted
-instructions take at it. Exits 2 without a device.
+accumulator chains of one instruction (no loads, no other work), tf32 and
+then bf16. Prints the card's name and power limit, then per instruction and
+configuration the CUDA-event time of 5 launches after a warm one and the
+rate in instructions a second per SM, and last a JSON line with each
+instruction's highest rate and the time the counted instructions take at
+it. Exits 2 without a device.
 """
 
 import argparse
@@ -27,6 +35,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -34,19 +43,27 @@ SOURCE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-template <int CHAINS>
-__global__ void mma_tf32_chains(float* out, int rounds) {
+template <int CHAINS, bool BF16>
+__global__ void mma_chains(float* out, int rounds) {
   const uint32_t a[4] = {threadIdx.x << 13, 0x3f800000u, 0x3f000000u, blockIdx.x << 13};
   const uint32_t b0 = 0x3f800000u, b1 = threadIdx.x << 14;
   float acc[CHAINS][4] = {};
   for (int i = 0; i < rounds; ++i) {
 #pragma unroll
     for (int j = 0; j < CHAINS; ++j) {
-      asm volatile(
-          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-          : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      if constexpr (BF16) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      } else {
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      }
     }
   }
   float s = 0.0f;
@@ -55,14 +72,23 @@ __global__ void mma_tf32_chains(float* out, int rounds) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
-extern "C" int mma_tf32_rate(float* out, int chains, int blocks, int threads, int rounds,
-                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chains == 4) mma_tf32_chains<4><<<blocks, threads, 0, s>>>(out, rounds);
-  else if (chains == 8) mma_tf32_chains<8><<<blocks, threads, 0, s>>>(out, rounds);
-  else if (chains == 16) mma_tf32_chains<16><<<blocks, threads, 0, s>>>(out, rounds);
+template <bool BF16>
+int launch(float* out, int chains, int blocks, int threads, int rounds, cudaStream_t s) {
+  if (chains == 4) mma_chains<4, BF16><<<blocks, threads, 0, s>>>(out, rounds);
+  else if (chains == 8) mma_chains<8, BF16><<<blocks, threads, 0, s>>>(out, rounds);
+  else if (chains == 16) mma_chains<16, BF16><<<blocks, threads, 0, s>>>(out, rounds);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+extern "C" int mma_tf32_rate(float* out, int chains, int blocks, int threads, int rounds,
+                             void* stream) {
+  return launch<false>(out, chains, blocks, threads, rounds, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mma_bf16_rate(float* out, int chains, int blocks, int threads, int rounds,
+                             void* stream) {
+  return launch<true>(out, chains, blocks, threads, rounds, static_cast<cudaStream_t>(stream));
 }
 """
 ROUNDS = 2000
@@ -96,6 +122,95 @@ def backward_mma_counts(b, t, nq, nkv, dh) -> dict[str, int]:
             "dkv_f32": dkv * group * 4 * per_product * b * nkv}
 
 
+def forward_mma_counts(mask, nq: int, dh: int) -> dict[str, int]:
+    """HMMA of the forward kernels over a 0/1 mask [B, T]: per 128-query
+    block and warp, the 32-key tiles up to the block's last query that the
+    warp does not skip (csrc/flash_attention.cu's takes_tile: a tile starting
+    after its last query; when its rows share one segment, a tile none of
+    whose keys up to its last query lies in it), times two products of the
+    warp's rows by 32 keys over DH: f32 warps of 16 rows in 3xTF32 m16n8k8,
+    bf16 warps of 32 rows in m16n8k16."""
+    mask = np.asarray(mask)
+    t = mask.shape[1]
+    keys = STREAM_ROWS
+    # (rows a warp, HMMA a warp tile): QK^T (keys / 8) x (DH / k) and
+    # PV (DH / 8) x (keys / k) per 16 rows, k = 8 (tf32, x3) or 16 (bf16)
+    per_tile = {"fwd_f32": (16, 3 * 2 * (keys // 8) * (dh // 8)),
+                "fwd_bf16": (32, 2 * 2 * (keys // 8) * (dh // 16))}
+    counts = {}
+    for name, (rows, mma) in per_tile.items():
+        tiles = 0
+        for row in mask:
+            for q0 in range(0, t, BLOCK_ROWS):
+                last = min(q0 + BLOCK_ROWS, t)
+                for qw in range(q0, last, rows):
+                    own = row[qw:qw + rows]
+                    uniform = bool((own == own[0]).all())
+                    for k0 in range(0, min(last, qw + rows), keys):
+                        if uniform and not (row[k0:min(k0 + keys, qw + rows)] == own[0]).any():
+                            continue
+                        tiles += 1
+        counts[name] = tiles * mma * nq
+    return counts
+
+
+def forward_counts() -> dict[str, dict[str, int]]:
+    """The forwards' HMMA at chip_smoke.py's serving and training masks and
+    on the masks of the paths the forward serves (4d's embed batch, 5b's
+    documents; full rows are the training shape's causal tiles, none
+    skipped by segment), each with the share of the causal tiles (those of
+    full rows at its shape) that the segment rule skips."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as smoke
+
+    nq, dh = smoke.FLASH_NQ, smoke.FLASH_DH
+    workloads = smoke.workload_flash_masks("cpu")
+    masks = {
+        "serving": smoke.serving_flash_mask("cpu"),
+        "serving, 4d's embed mask": workloads["embed_4d"],
+        "training": smoke.training_flash_mask(smoke.TRAIN_B, smoke.TRAIN_T, 70, "cpu"),
+        "training, 5b's documents": workloads["train_5b"],
+        "training, full rows": workloads["train_full"],
+    }
+    counts = {label: forward_mma_counts(mask.numpy(), nq, dh) for label, mask in masks.items()}
+    for label, mask in masks.items():
+        full = forward_mma_counts(np.ones(tuple(mask.shape), dtype=np.int32), nq, dh)
+        counts[label].update({f"{name}_skipped_share": 1 - counts[label][name] / n
+                              for name, n in full.items()})
+    return counts
+
+
+def best_rate(lib, entry: str, out, blocks: int, sms: int) -> float:
+    """The highest rate per SM over the chain and thread configurations of
+    one instruction, printing each."""
+    best = 0.0
+    fn = getattr(lib, entry)
+    for chains in (4, 8, 16):
+        for threads in (128, 256, 512):
+            def launch():
+                status = fn(out.data_ptr(), chains, blocks, threads, ROUNDS,
+                            torch.cuda.current_stream().cuda_stream)
+                if status != 0:
+                    raise RuntimeError(f"{entry}: cudaError {status}")
+
+            launch()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                launch()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 5
+            count = blocks * threads // 32 * ROUNDS * chains
+            rate = count / (ms * 1e-3) / sms
+            best = max(best, rate)
+            print(f"{entry}: chains {chains}, {threads} threads a block: {ms:.4f} ms, "
+                  f"{rate / 1e9:.3f} G instructions a second per SM", flush=True)
+    return best
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--count-only", action="store_true",
@@ -103,6 +218,9 @@ def main() -> int:
     args = parser.parse_args()
     counts = backward_mma_counts(*TRAIN_SHAPE)
     print(f"f32 backward at B, T, NQ, NKV, DH = {TRAIN_SHAPE}: {counts}", flush=True)
+    fwd = forward_counts()
+    for shape, shape_counts in fwd.items():
+        print(f"forward, {shape}: {shape_counts}", flush=True)
     if args.count_only:
         return 0
     if not torch.cuda.is_available():
@@ -118,8 +236,9 @@ def main() -> int:
     subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib_path), str(src)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
-    lib.mma_tf32_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.mma_tf32_rate.restype = ctypes.c_int
+    for entry in ("mma_tf32_rate", "mma_bf16_rate"):
+        getattr(lib, entry).argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        getattr(lib, entry).restype = ctypes.c_int
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -128,34 +247,20 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = BLOCKS_PER_SM * sms
     out = torch.empty(blocks * 512, device="cuda")
-    best = 0.0
-    for chains in (4, 8, 16):
-        for threads in (128, 256, 512):
-            def launch():
-                status = lib.mma_tf32_rate(out.data_ptr(), chains, blocks, threads, ROUNDS,
-                                           torch.cuda.current_stream().cuda_stream)
-                if status != 0:
-                    raise RuntimeError(f"mma_tf32_rate: cudaError {status}")
-
-            launch()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(5):
-                launch()
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / 5
-            count = blocks * threads // 32 * ROUNDS * chains
-            rate = count / (ms * 1e-3) / sms
-            best = max(best, rate)
-            print(f"chains {chains}, {threads} threads a block: {ms:.4f} ms, "
-                  f"{rate / 1e9:.3f} G mma.m16n8k8.tf32 a second per SM", flush=True)
-    print(json.dumps({"card": card, "sms": sms, "best_per_sm_per_s": best,
-                      "tf32_flop_per_s": best * sms * 2 * 16 * 8 * 8,
-                      "backward_ms_at_best": {k: n / (best * sms) * 1e3
-                                              for k, n in counts.items()}}))
+    best = best_rate(lib, "mma_tf32_rate", out, blocks, sms)
+    best_bf16 = best_rate(lib, "mma_bf16_rate", out, blocks, sms)
+    print(json.dumps({
+        "card": card, "sms": sms, "best_per_sm_per_s": best,
+        "tf32_flop_per_s": best * sms * 2 * 16 * 8 * 8,
+        "best_bf16_per_sm_per_s": best_bf16,
+        "bf16_flop_per_s": best_bf16 * sms * 2 * 16 * 8 * 16,
+        "backward_ms_at_best": {k: n / (best * sms) * 1e3 for k, n in counts.items()},
+        "forward_ms_at_best": {
+            shape: {k: n / ((best if k == "fwd_f32" else best_bf16) * sms) * 1e3
+                    for k, n in shape_counts.items() if not k.endswith("_share")}
+            for shape, shape_counts in fwd.items()
+        },
+    }))
     return 0
 
 

@@ -467,6 +467,98 @@ def test_flash_lse_matches_plain_and_keeps_out(cuda, b, t, nq, nkv, dh, lengths,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
+    "b,t,nq,nkv,dh,lengths,left_pad",
+    [
+        (3, 192, 4, 4, 128, [192, 1, 100], 70),  # group 1, a half 128-query block
+        (4, 320, 6, 2, 64, [320, 1, 1, 257], 130),  # group 3, DH 64, half block
+        (3, 320, 8, 2, 128, [1, 320, 200], 66),  # group 4, half block
+        (2, 256, 12, 4, 64, [1, 256], 129),  # group 3, DH 64, whole blocks
+        (2, 192, 4, 1, 128, [1, 192], 64),  # group 4, one kv head
+    ],
+)
+def test_flash_forward_matches_plain_on_half_blocks_groups_and_padding(
+    cuda, b, t, nq, nkv, dh, lengths, left_pad, dtype
+):
+    """The forward kernels' 128-query blocks and their tile skips: T % 128
+    == 64 (the last block's warps 4-7 without rows), GQA groups 1, 3 and 4,
+    DH 64, rows of length 1 and a left-padded last row (its first key tiles
+    wholly in the other segment, skipped by its warps), valid rows within
+    ``kernel_tolerance`` of the twin, every output finite, with and without
+    lse the same bits."""
+    q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, lengths, seed=17 + t + dh,
+                                  dtype=dtype)
+    mask = _left_pad(mask, b - 1, left_pad)
+    before = FA.attention_flash.launches
+    got = FA.attention_flash(q, k, v, mask, dh**-0.5)
+    got_lse, _ = FA.attention_flash(q, k, v, mask, dh**-0.5, with_lse=True)
+    assert FA.attention_flash.launches == before + 2
+    want = FA.attention_flash_plain(q, k, v, mask, dh**-0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (b, t, nq * dh) and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, got_lse)
+    valid = mask.bool()
+    got_v, want_v = got[valid].float(), want[valid].float()
+    assert float((got_v - want_v).abs().max()) <= FA.kernel_tolerance(q, k, v, want_v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_forward_is_the_same_in_every_repeated_launch(cuda, dtype):
+    """The forward kernels sum in a fixed order (no atomics; the bf16 ring
+    and the f32 split tiles are refilled only behind barriers), so 50
+    launches on the same inputs give the first launch's output and lse,
+    each of them: a fault of a ring may show in 1 launch of 30."""
+    b, t, nq, nkv, dh = 4, 320, 16, 8, 128
+    q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, [320, 1, 130, 200], seed=19,
+                                  dtype=dtype)
+    mask = _left_pad(mask, b - 1, 66)
+    first = FA.attention_flash(q, k, v, mask, dh**-0.5, with_lse=True)
+    differing = 0
+    for _ in range(50):
+        again = FA.attention_flash(q, k, v, mask, dh**-0.5, with_lse=True)
+        differing += not all(torch.equal(x, y) for x, y in zip(first, again))
+    torch.cuda.synchronize()
+    assert differing == 0
+
+
+def test_flash_forward_f32_keeps_the_lo_terms_of_its_products(cuda):
+    """The float32 forward's products are 3xTF32, not 1xTF32. q is 8 in
+    every entry (exact in tf32) and kv row j of head h is 1 + x in every
+    entry, x = ((j + h) % 4) 2^-12: not a tf32 value unless x = 0, but its
+    hi/lo split is exact, so the three-term products and their f32 sums
+    (multiples of 2^-9 below 2^11) are exact in the kernel, as the twin's
+    f32 products and sums are. Only the scaling rounds, within 2^-24 for
+    the scale and for each product on each side: each score within
+    eps = 2^-22 max|s| (max|s| <= scale max|q| max|k|) of the twin's, in
+    place of ``kernel_tolerance``'s product term, whose other terms stay
+    (4 eps for the weights and exp2 against exp, the 3xTF32 PV sum over T
+    keys, the division). 1xTF32 products round x away or up to 2^-10,
+    moving the scores by up to 0.066 against each other, and the output by
+    about 0.08 (about 1e-3 if only PV were 1xTF32), against a bound of
+    about 8e-4."""
+    b, t, nq, nkv, dh = 2, 256, 4, 2, 128
+    scale = dh**-0.5
+    q = torch.full((b, t, nq, dh), 8.0, device=cuda)
+    x = (torch.arange(t, device=cuda)[:, None] + torch.arange(nkv, device=cuda)) % 4
+    k = (1 + x.float() * 2.0**-12)[None, :, :, None].expand(b, t, nkv, dh).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    v = torch.randn(b, t, nkv, dh, generator=gen, device=cuda)
+    mask = (torch.arange(t, device=cuda)[None] < torch.tensor([t, 170], device=cuda)[:, None])
+    mask = mask.to(torch.int32)
+    got = FA.attention_flash(q, k, v, mask, scale)
+    want = FA.attention_flash_plain(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    valid = mask.bool()
+    s_max = scale * float(q.norm(dim=-1).max()) * float(k.norm(dim=-1).max())
+    eps = 2.0**-22 * s_max
+    bound = (float(v.abs().max()) * (4 * eps + 3 * 2.0**-22 + 7 * t * 2.0**-24)
+             + 2.0**-22 * float(want.abs().max()))
+    assert bool(torch.isfinite(got).all())
+    assert float((got[valid] - want[valid]).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
     "b,t,nq,nkv,dh,lengths",
     [
         (4, 256, 4, 2, 128, [1, 63, 200, 256]),
