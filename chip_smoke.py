@@ -20,7 +20,8 @@ Phases, each announced before it starts and timed after it ends:
    bound and SDPA;
    then K5's backward kernels (dq and
    dk/dv, float32 and bf16) and its forward's lse at the training shape
-   (B 32 x T 256) and at B 64 x T 512, timed at the training shape beside
+   (B 32 x T 256: the check's ragged mask, 5b's documents and full rows)
+   and at B 64 x T 512, timed at the training shape on each mask beside
    SDPA's backward (dq and dk/dv together too, as "pair ms / library ms");
    3b. ``bin_topk_pipelined`` through its entry point at the serving shape,
    bf16 and float32: its only path, since neither package routes to it;
@@ -47,7 +48,8 @@ Phases, each announced before it starts and timed after it ends:
    32, queries 64, documents 256 tokens, AdamW lr 1e-5) to step 4 with a
    checkpoint every 2 steps, then again to step 6, resuming from step 4;
    5c one batch's loss and gradients with flash and without; 5d two
-   cross-encoder steps in bf16 at max_length 256. Every step launches K5's
+   cross-encoder steps in bf16 at max_length 256 (their pairs/s on a line
+   of its own). Every step launches K5's
    forward, dq and dk/dv once per layer each, and no other kernel.
 Every kernel's launch count is set to 0 just before each path of phases
 3b, 4 and 5 is driven and read just after it.
@@ -961,16 +963,18 @@ def workload_flash_masks(device) -> dict[str, torch.Tensor]:
     }
 
 
-def _check_flash_bwd_case(name, batch, seq, seed, device, dtype) -> tuple:
+def _check_flash_bwd_case(name, batch, seq, seed, device, dtype, mask=None) -> tuple:
     """Forward with lse and both backward kernels against the plain twins
-    on one input: out equal bit for bit with and without lse, lse within
-    the score tolerance of the twin's logsumexp, and dq, dk, dv within
+    on one input (the mask given, else ``training_flash_mask``): out equal
+    bit for bit with and without lse, lse within the score tolerance of the
+    twin's logsumexp, and dq, dk, dv within
     ``ops.flash_attention.bwd_kernel_tolerance`` (derived there), dO zero
     on pad rows as a pooled loss gives it. Returns (errors, inputs)."""
     from lean_explore_tpu_torch.ops import flash_attention as FA
 
     q, k, v, _ = flash_inputs(batch, seq, [seq] * batch, seed, device, dtype)
-    mask = training_flash_mask(batch, seq, seed, device)
+    if mask is None:
+        mask = training_flash_mask(batch, seq, seed, device)
     scale = FLASH_DH**-0.5
     out = FA.attention_flash(q, k, v, mask, scale)
     out_lse, lse = FA.attention_flash(q, k, v, mask, scale, with_lse=True)
@@ -1009,31 +1013,23 @@ def _check_flash_bwd_case(name, batch, seq, seed, device, dtype) -> tuple:
     return errs, (q, k, v, mask, dout, lse, di)
 
 
-def check_flash_backward(device, dtype=torch.bfloat16) -> list[dict]:
-    """K5's dq and dk/dv kernels at the training shape (B 32 x T 256, the
-    CLI's documents) and at the forward's B 64 x T 512, timed at the
-    training shape beside their bound, the plain twin and SDPA's backward."""
+def _time_flash_bwd(q, k, v, mask, dout, lse, di, reps: int = 20) -> dict:
+    """CUDA-event ms of the dq and dk/dv kernels and of SDPA's backward (the
+    yardstick the port never calls: it computes dq, dk and dv in one call,
+    same boolean mask, grouped kv heads) on one input, and each kernel's
+    bound from it: q, k, v, dO, lse, di and the mask read once, its own
+    gradients written once; its 3 (dq) or 4 (dk/dv) products over the
+    allowed pairs."""
     import torch.nn.functional as nnf
 
     from lean_explore_tpu_torch.ops import flash_attention as FA
 
-    f32 = dtype == torch.float32
-    more = _check_flash_bwd_case("serving shape", FLASH_B, FLASH_T, 71, device, dtype)[0]
-    torch.cuda.empty_cache()
-    errs, inputs = _check_flash_bwd_case("training shape", TRAIN_B, TRAIN_T, 70, device, dtype)
-    errs = {k_: max(errs[k_], more[k_]) for k_ in errs}
-    q, k, v, mask, dout, lse, di = inputs
     scale = FLASH_DH**-0.5
     args = (q, k, v, mask, dout, lse, di, scale)
-    reps = 20
-    dq_ms = cuda_ms(lambda: FA.attention_flash_bwd_dq(*args), reps)
-    dkv_ms = cuda_ms(lambda: FA.attention_flash_bwd_dkv(*args), reps)
-    out = FA.attention_flash(q, k, v, mask, scale)
-    plain_ms = cuda_ms(
-        lambda: FA.attention_flash_bwd_plain(q, k, v, mask, out, lse, dout, scale), 3
-    )
-    # Yardstick the port never calls: SDPA's backward alone (it computes
-    # dq, dk and dv in one call), same boolean mask, grouped kv heads.
+    times = {
+        "dq": cuda_ms(lambda: FA.attention_flash_bwd_dq(*args), reps),
+        "dkv": cuda_ms(lambda: FA.attention_flash_bwd_dkv(*args), reps),
+    }
     allowed = FA.allowed_keys(mask)[:, None]
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     sdpa_out = nnf.scaled_dot_product_attention(
@@ -1044,31 +1040,67 @@ def check_flash_backward(device, dtype=torch.bfloat16) -> list[dict]:
         lambda: torch.autograd.grad(sdpa_out, leaves, grad_out, retain_graph=True), reps
     )
     del sdpa_out, leaves
-    log(
-        f"  flash backward {dtype} pair (dq + dk/dv) {dq_ms + dkv_ms:.4f} ms / library SDPA "
-        f"backward {library_ms:.4f} ms at B={TRAIN_B} T={TRAIN_T}"
-    )
     pairs = float(allowed.sum())
     size = q.element_size()
     common = (2 * q.numel() + k.numel() + v.numel()) * size + 2 * lse.numel() * 4 + mask.numel() * 4
-    suffix = "_f32" if f32 else ""
-    rate = TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
-    rows = []
-    for kernel, ms, written, products in (
-        ("dq", dq_ms, q.numel() * size, 3),
-        ("dkv", dkv_ms, (k.numel() + v.numel()) * size, 4),
+    rate = TF32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
+    timed = {"library_ms": library_ms, "pairs": pairs}
+    for kernel, written, products in (
+        ("dq", q.numel() * size, 3),
+        ("dkv", (k.numel() + v.numel()) * size, 4),
     ):
-        bytes_moved = common + written
         flops = 2.0 * FLASH_DH * FLASH_NQ * pairs * products
-        b_ms, b_by = bound_ms(bytes_moved, flops, rate)
-        err = max(e for label, (e, _) in errs.items() if (label == "dq") == (kernel == "dq"))
+        b_ms, b_by = bound_ms(common + written, flops, rate)
+        timed[kernel] = {"ms": times[kernel], "library_ms": library_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "mb": (common + written) / 1e6,
+                         "gflop": flops / 1e9}
+    return timed
+
+
+def check_flash_backward(device, dtype=torch.bfloat16) -> list[dict]:
+    """K5's dq and dk/dv kernels at the training shape (B 32 x T 256, the
+    check's ragged mask, then the training paths' masks: 5b's documents and
+    full rows) and at the forward's B 64 x T 512, timed at the training
+    shape on each mask beside their bound, the plain twin and SDPA's
+    backward (the row's numbers are the check mask's; each workload mask's
+    follow under "<label>_mask")."""
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
+    f32 = dtype == torch.float32
+    errs = _check_flash_bwd_case("serving shape", FLASH_B, FLASH_T, 71, device, dtype)[0]
+    torch.cuda.empty_cache()
+    masks = {"check": None, **{
+        label: mask for label, mask in workload_flash_masks(device).items()
+        if mask.shape[0] == TRAIN_B
+    }}
+    timed = {}
+    for label, mask in masks.items():
+        name = "training shape" if mask is None else f"training shape, the {label} mask"
+        more, inputs = _check_flash_bwd_case(name, TRAIN_B, TRAIN_T, 70, device, dtype, mask)
+        errs = {k_: max(errs[k_], more[k_]) for k_ in errs}
+        timed[label] = _time_flash_bwd(*inputs)
+        if mask is None:
+            q, k, v, check_mask, dout, lse, _ = inputs
+            out = FA.attention_flash(q, k, v, check_mask, FLASH_DH**-0.5)
+            plain_ms = cuda_ms(lambda: FA.attention_flash_bwd_plain(
+                q, k, v, check_mask, out, lse, dout, FLASH_DH**-0.5), 3)
+            del out
+        del inputs
+    suffix = "_f32" if f32 else ""
+    rows = []
+    for kernel in ("dq", "dkv"):
         name = f"flash_attention_bwd_{kernel}{suffix}"
-        log(
-            f"  {name} kernel {ms:.4f} ms, plain (dq, dk, dv together) {plain_ms:.4f} ms, "
-            f"library SDPA backward (dq, dk, dv together) {library_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by} ({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.1f} "
-            f"GFLOP over {pairs:.0f} allowed pairs) at B={TRAIN_B} T={TRAIN_T}"
-        )
+        for label, t in timed.items():
+            log(
+                f"  {name} on the {label} mask: kernel {t[kernel]['ms']:.4f} ms, library SDPA "
+                f"backward (dq, dk, dv together) {t['library_ms']:.4f} ms, bound "
+                f"{t[kernel]['bound_ms']:.4f} ms by {t[kernel]['bound_by']} "
+                f"({t[kernel]['mb']:.1f} MB, {t[kernel]['gflop']:.1f} GFLOP over "
+                f"{t['pairs']:.0f} allowed pairs) at B={TRAIN_B} T={TRAIN_T}"
+                + (f", plain (dq, dk, dv together) {plain_ms:.4f} ms" if label == "check" else "")
+            )
+        err = max(e for label, (e, _) in errs.items() if (label == "dq") == (kernel == "dq"))
+        check = timed["check"][kernel]
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1079,13 +1111,23 @@ def check_flash_backward(device, dtype=torch.bfloat16) -> list[dict]:
             ),
             "launches": None,
             "max_abs_err": err,
-            "ms": ms,
+            "ms": check["ms"],
             "plain_ms": plain_ms,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": library_ms,
+            "bound_ms": check["bound_ms"],
+            "bound_by": check["bound_by"],
+            "library_ms": check["library_ms"],
+            **{
+                f"{label}_mask": {key: t[kernel][key]
+                                  for key in ("ms", "library_ms", "bound_ms", "bound_by")}
+                for label, t in timed.items() if label != "check"
+            },
         })
-    del inputs, args, out
+    for label, t in timed.items():
+        log(
+            f"  flash backward {dtype} pair (dq + dk/dv) on the {label} mask "
+            f"{t['dq']['ms'] + t['dkv']['ms']:.4f} ms / library SDPA backward "
+            f"{t['library_ms']:.4f} ms at B={TRAIN_B} T={TRAIN_T}"
+        )
     torch.cuda.empty_cache()
     return rows
 
@@ -2048,13 +2090,16 @@ def run_cross_encoder(device, data_dir, card) -> dict:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"cross-encoder losses {losses}")
     _expect_training_launches("cross-encoder", launched.counts, 2, config.num_hidden_layers)
+    pairs_per_s = 2 * TRAIN_B / seconds
     log(
         f"  cross-encoder (bf16, T=256, B={TRAIN_B}): losses {[round(x, 5) for x in losses]}, "
-        f"{2 * TRAIN_B / seconds:.2f} pairs/s over 2 steps; launches {launched.counts}; {card}"
+        f"{pairs_per_s:.2f} pairs/s over 2 steps; launches {launched.counts}; {card}"
     )
+    log(f"  5d: {pairs_per_s:.2f} cross-encoder pairs/s (bf16 backward through the dq and "
+        f"dk/dv kernels); {card}")
     del params, opt_state
     torch.cuda.empty_cache()
-    return launched.counts
+    return launched.counts, pairs_per_s
 
 
 def run_training(device, kernels, card) -> None:
@@ -2085,11 +2130,12 @@ def run_training(device, kernels, card) -> None:
         with Phase("5c. flash against einsum gradients at full width"):
             compare_flash_gradients(device, data_dir, model_dir, card)
         with Phase("5d. cross-encoder, two steps"):
-            counts = run_cross_encoder(device, data_dir, card)
+            counts, pairs_per_s = run_cross_encoder(device, data_dir, card)
             for suffix in ("dq", "dkv"):
                 row = by_name[f"flash_attention_bwd_{suffix}"]
                 row["launches"] = counts[f"flash_attention_bwd_{suffix}"]
                 row["launches_per_step"] = layers
+                row["cross_encoder_pairs_per_s"] = pairs_per_s
     for forbidden in ("jax", "lean_explore_tpu"):
         if forbidden in sys.modules:
             raise AssertionError(f"{forbidden} was imported on the training path")

@@ -198,38 +198,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&o)[OTI
   }
 }
 
-// Whether a warp takes a key tile of KEYS keys from k0 (its ids in kseg)
-// for its ROWS queries from qw (`uniform` when all are in segment s0): not
-// when no (query, key) pair of the tile is allowed. Causal alone decides for
-// rows of several segments. Lane l reads keys l, l + 32, ...
-template <int KEYS, int ROWS>
-__device__ __forceinline__ bool takes_tile(const int* kseg, int k0, int qw, bool uniform, int s0,
-                                           int lane) {
-  if (k0 > qw + ROWS - 1) return false;
-  bool hit = !uniform;
-#pragma unroll
-  for (int i = 0; i < KEYS / 32; ++i)
-    hit |= kseg[lane + 32 * i] == s0 && k0 + lane + 32 * i <= qw + ROWS - 1;
-  return __any_sync(0xffffffffu, hit);
-}
-
-// The segment ids of this thread's rows (row_lo + 16m + 8r of MT 16-row
-// tiles) and whether the warp's rows share one, s0.
-template <int MT>
-__device__ __forceinline__ void row_segments(const int* seg, int row_lo, int (&qseg)[MT][2],
-                                             bool& uniform, int& s0) {
-  bool same = true;
-  s0 = __shfl_sync(0xffffffffu, seg[row_lo], 0);
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      qseg[m][r] = seg[row_lo + 16 * m + 8 * r];
-      same &= qseg[m][r] == s0;
-    }
-  uniform = __all_sync(0xffffffffu, same);
-}
-
 // The row sums of a row are spread over its quad; the full sums, then the
 // row log-sum-exp (when lse is not null) and the rows scaled by 1 / sum.
 template <int OTILES>

@@ -27,35 +27,61 @@
 // segment and the diagonal, so lse is finite on every row and no NaN can
 // arise; where dO is 0 (pad rows of a pooled loss) they add nothing.
 //
-// bf16 design. Four warps of 16 rows over 64-row tiles padded by 16 bytes,
-// every product on mma.sync m16n8k16 bf16 -> f32 (rows_x_rows and
-// acc_x_tile of flash_tiles.cuh).
+// bf16 design: every product on wgmma (sm_90a), warpgroups of 4 warps
+// over 64 fixed rows, Q and dO (dk/dv) or K and V (dq) streamed past as
+// 32-row tiles; flash_tiles.cuh has the swizzled tiles and wgmma helpers.
 //
-// - dk/dv: one block per (64-key block, kv head, batch row), the earliest
-//   key blocks (the most queries) first. K and V stay in shared memory;
-//   the (q head, query block) pairs of its group from the diagonal on
-//   stream Q and dO through two buffers by cp.async. Each warp owns 16 keys
-//   and computes S^T = K Q^T and P^T from lse (keys as rows, so P^T and
-//   dS^T are A operands straight from the accumulators). Two passes keep
-//   64 accumulators a thread in flight, not 128: the first accumulates
-//   dV += P^T dO and writes dV; the second recomputes S^T, forms
-//   dP^T = V dO^T and dS^T, accumulates dK += dS^T Q and writes dK.
-// - dq: one block per (64-query block, q head, batch row), the latest
-//   query blocks (the most keys) first. Q and dO stay in shared memory; the
-//   key blocks up to the diagonal stream K and V through two buffers. Each
-//   warp owns 16 queries: S = Q K^T, P, dP = dO V^T, dS, dQ += dS K.
+// - dk/dv: one block of one warpgroup per (64-key block, kv head, batch
+//   row), the earliest key blocks (the most queries) first, two blocks an
+//   SM. K and V stay in shared memory; the pairs (q head of the group,
+//   32-row query tile) from the block's first key on stream through a
+//   3-stage cp.async ring, their lse, di and segment ids staged beside
+//   them. One pass, 4 products a tile pair: S^T = K Q^T and dP^T = V dO^T
+//   as m64n32k16 with both operands in shared memory (K-major), P^T from
+//   lse, then dV += P^T dO and dK += dS^T Q as m64n{DH}k16 whose A is the
+//   f32 accumulator rounded to bf16 in registers (its layout is the A
+//   fragment's) and whose B is the streamed tile read MN-major (the
+//   descriptor's transpose bit). dP^T runs under P^T's softmax, dV under
+//   dS^T's.
+// - dq: one block of two warpgroups per (128-query block, q head, batch
+//   row), the latest query blocks (the most keys) first, two blocks an SM
+//   (at most 128 registers a thread, a 2-stage ring). S = Q K^T and
+//   dP = dO V^T from shared memory, dQ += dS K with dS in registers and K
+//   read MN-major.
+// - A warpgroup skips a streamed tile in which the mask allows no pair of
+//   its 64 rows: causal, or, when its rows share one segment, a tile with
+//   no row of that segment in its causal range (the forward's rule, a
+//   ballot over the staged ids, the same in its four warps, which issue
+//   each wgmma together). The skip is exact: such a tile adds p = 0 and
+//   ds = 0 to every sum. T % 128 == 64 leaves dq's last block an upper
+//   warpgroup without rows; it only copies.
+// - Tiles are unpadded, in wgmma's 128-byte swizzle (panels of 64 columns,
+//   each row's 16-byte chunks XOR-ed by its place in its 8-row group),
+//   written so by cp.async, and 1024-byte aligned; a proxy fence after each
+//   ring wait makes the copies visible to wgmma. The gradients leave
+//   through the warpgroup's own rows of the fixed tiles as 16-byte stores
+//   of whole rows (7-23% faster than bf16 pairs straight from the
+//   accumulators, scripts/time_flash_backward_variants.py).
+// - Shared memory (DH = 128): dk/dv K and V 32 KB, the ring 48 KB, 82 KB a
+//   block; dq Q and dO 64 KB, the ring 32 KB, 98 KB. Registers (ptxas):
+//   dk/dv 245, dq 128 with 8 bytes spilled.
 //
-// Shared memory: two fixed tiles and two double-buffered ones of
-// 64 x (DH * 2 + 16) bytes, 102 KB at DH = 128 (two blocks an SM), plus
-// the segment ids. Registers (ptxas, DH = 128): dq 238, dk/dv 250, no spill.
+// What holds them (the variants script's ablations, NVIDIA H100 80GB
+// HBM3): no one part; leaving out the products, the softmax, the streamed
+// or the fixed copies saves 5-22% each. Their wgmma take about 0.02 ms at
+// the rates scripts/measure_mma_tf32_rate.py measures (m64n32k16 from
+// shared memory at 65% of the tensor cores' peak, m64n128k16 with A in
+// registers at 98%), the bytes 0.040 ms at 3.35 TB/s; the rest is each
+// warpgroup's chain of ring wait, barrier, ballot, products and softmax,
+// and each block's first copies, with 2 warpgroups an SM.
 //
 // float32 design (3xTF32: each operand split into tf32 hi and lo, every
 // product lo*hi + hi*lo + hi*hi on mma.sync m16n8k8, within about 3 * 2^-22
-// of f32 per product, as in the forward). The products and their
-// operands are the bf16 kernels'; the blocks differ, because four warps
-// over 64-row f32 tiles ran one block of 4 warps an SM (198 KB of padded
-// tiles), computed S^T twice in dk/dv (5 products a tile pair, where 4 do)
-// for want of registers, split every streamed value again in each warp and
+// of f32 per product, as in the forward). The products and their operands
+// are the bf16 kernels'. Four warps over 64-row f32 tiles (the first
+// design) ran one block of 4 warps an SM (198 KB of padded tiles),
+// computed S^T twice in dk/dv (5 products a tile pair, where 4 do) for
+// want of registers, split every streamed value again in each warp and
 // read acc_x_tile's B with 2-way bank conflicts (its pad served ldmatrix
 // only).
 //
@@ -109,59 +135,6 @@
 namespace tiles {
 namespace {  // the header's internal namespace, reopened
 
-// Scales and masks a warp's 16 x 64 score fragment and turns it into
-// probabilities: s[j][e] (row row0 + g + (e >> 1) * 8, column col0 + j * 8
-// + 2t + (e & 1)) becomes exp2(s * scale_log2 - lse2) where the key is not
-// later than the query and both share a segment, and exactly 0 elsewhere
-// (through the mask value). KEY_ROWS says whether the rows are keys (dk/dv)
-// or queries (dq); lse2 of the query is lse * log2(e).
-template <bool KEY_ROWS>
-__device__ __forceinline__ void probabilities(float (&s)[8][4], const int* sseg, int row0,
-                                              int col0, const float* lse2_row,
-                                              const float* lse2_col, int lane,
-                                              float scale_log2) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + g + (e >> 1) * 8;
-      const int col = col0 + j * 8 + 2 * t + (e & 1);
-      float lse2;
-      bool ok;
-      if constexpr (KEY_ROWS) {
-        lse2 = lse2_col[j * 2 + (e & 1)];
-        ok = row <= col;
-      } else {
-        lse2 = lse2_row[e >> 1];
-        ok = col <= row;
-      }
-      ok = ok && sseg[row] == sseg[col];
-      s[j][e] = exp2f((ok ? s[j][e] * scale_log2 : FA_MASK) - lse2);
-    }
-}
-
-// ds = sm_scale * p * (dp - di), in place in dp; di of the query (the
-// row in dq, the column in dk/dv).
-template <bool KEY_ROWS>
-__device__ __forceinline__ void score_grads(float (&dp)[8][4], const float (&p)[8][4],
-                                            const float* di_row, const float* di_col,
-                                            float sm_scale) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float di;
-      if constexpr (KEY_ROWS) {
-        di = di_col[j * 2 + (e & 1)];
-      } else {
-        di = di_row[e >> 1];
-      }
-      dp[j][e] = sm_scale * p[j][e] * (dp[j][e] - di);
-    }
-}
-
 template <int N>
 __device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
@@ -185,206 +158,16 @@ struct BwdArgs {
   float sm_scale;
 };
 
-// One pass of the dk/dv block over its (q head, query block) pairs: DK
-// false accumulates dV = sum P^T dO, DK true dK = sum dS^T Q; the result
-// is written to rows k0 + warp * 16 .. of dv or dk.
-template <int DH, bool DK>
-__device__ __forceinline__ void dkv_pass(const BwdArgs& a, uint8_t* smem, int kb, int hk,
-                                         int b, bool load_kv) {
-  using S = FlashShape<DH, 2>;
-  constexpr int ROW = S::ROW;
-  uint8_t* sk = smem;
-  uint8_t* sv = smem + S::TILE;
-  uint8_t* sq = smem + 2 * S::TILE;   // two buffers
-  uint8_t* sdo = smem + 4 * S::TILE;  // two buffers
-  const int* sseg = reinterpret_cast<const int*>(smem + 6 * S::TILE);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int t = lane & 3;
-  const int T = a.T;
-  const int group = a.NQ / a.NKV;
-  const int nqb = T / FA_BLOCK;
-  const int k0 = kb * FA_BLOCK;
-  const long long q_stride = (long long)a.NQ * DH * 2;
-  const long long kv_stride = (long long)a.NKV * DH * 2;
-  const float scale_log2 = a.sm_scale * LOG2E;
-
-  // Pairs (h, qb): the group's heads, each over the query blocks kb..nqb-1.
-  const int span = nqb - kb;
-  const int n_iter = group * span;
-  auto load = [&](int it, int buf) {
-    const int h = hk * group + it / span;
-    const int q0 = (kb + it % span) * FA_BLOCK;
-    const long long off = ((long long)b * T + q0) * q_stride + (long long)h * DH * 2;
-    load_tile<DH, 2, ROW>(sq + buf * S::TILE, a.q + off, q_stride, tid);
-    load_tile<DH, 2, ROW>(sdo + buf * S::TILE, a.dout + off, q_stride, tid);
-  };
-  if (load_kv) {
-    const long long off = ((long long)b * T + k0) * kv_stride + (long long)hk * DH * 2;
-    load_tile<DH, 2, ROW>(sk, a.k + off, kv_stride, tid);
-    load_tile<DH, 2, ROW>(sv, a.v + off, kv_stride, tid);
-  }
-  load(0, 0);
-  cp_async_commit();
-
-  float acc[DH / 8][4];
-  zero(acc);
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iter) load(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-
-    const int h = hk * group + it / span;
-    const int q0 = (kb + it % span) * FA_BLOCK;
-    // lse * log2(e) and di of this thread's 16 query columns.
-    const long long row_base = ((long long)b * a.NQ + h) * T + q0 + 2 * t;
-    float lse2[16], dis[16];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        lse2[j * 2 + c] = a.lse[row_base + j * 8 + c] * LOG2E;
-        if constexpr (DK) dis[j * 2 + c] = a.di[row_base + j * 8 + c];
-      }
-
-    const uint8_t* qt = sq + buf * S::TILE;
-    const uint8_t* dot = sdo + buf * S::TILE;
-    float p[8][4];
-    zero(p);
-    rows_x_rows<DH, ROW>(p, sk, warp * 16, qt, lane);  // S^T = K Q^T
-    probabilities<true>(p, sseg, k0 + warp * 16, q0, nullptr, lse2, lane, scale_log2);
-    if constexpr (DK) {
-      float ds[8][4];
-      zero(ds);
-      rows_x_rows<DH, ROW>(ds, sv, warp * 16, dot, lane);  // dP^T = V dO^T
-      score_grads<true>(ds, p, nullptr, dis, a.sm_scale);
-      acc_x_tile<DH, ROW>(acc, ds, qt, lane);  // dK += dS^T Q
-    } else {
-      acc_x_tile<DH, ROW>(acc, p, dot, lane);  // dV += P^T dO
-    }
-    __syncthreads();
-  }
-  cp_async_wait_all();
-
-  uint8_t* dst = (DK ? a.dk : a.dv) +
-                 (((long long)b * T) * a.NKV + hk) * DH * 2;
-  store_rows<DH>(dst, (long long)a.NKV * DH, k0 + warp * 16 + (lane >> 2), acc, lane);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(FA_THREADS) flash_attention_dkv_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  using S = FlashShape<DH, 2>;
-  int* sseg = reinterpret_cast<int*>(smem + 6 * S::TILE);
-  const int kb = blockIdx.x;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  for (int i = threadIdx.x; i < a.T; i += FA_THREADS) sseg[i] = a.seg[(long long)b * a.T + i];
-  dkv_pass<DH, false>(a, smem, kb, hk, b, true);
-  dkv_pass<DH, true>(a, smem, kb, hk, b, false);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(FA_THREADS) flash_attention_dq_kernel(BwdArgs a) {
-  using S = FlashShape<DH, 2>;
-  constexpr int ROW = S::ROW;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* sq = smem;
-  uint8_t* sdo = smem + S::TILE;
-  uint8_t* sk = smem + 2 * S::TILE;  // two buffers
-  uint8_t* sv = smem + 4 * S::TILE;  // two buffers
-  int* sseg = reinterpret_cast<int*>(smem + 6 * S::TILE);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int T = a.T;
-  const int hk = h / (a.NQ / a.NKV);
-  const int q0 = qb * FA_BLOCK;
-  const long long q_stride = (long long)a.NQ * DH * 2;
-  const long long kv_stride = (long long)a.NKV * DH * 2;
-  const long long q_off = ((long long)b * T + q0) * q_stride + (long long)h * DH * 2;
-  const long long kv_base = (long long)b * T * kv_stride + (long long)hk * DH * 2;
-  const float scale_log2 = a.sm_scale * LOG2E;
-
-  for (int i = tid; i < T; i += FA_THREADS) sseg[i] = a.seg[(long long)b * T + i];
-  load_tile<DH, 2, ROW>(sq, a.q + q_off, q_stride, tid);
-  load_tile<DH, 2, ROW>(sdo, a.dout + q_off, q_stride, tid);
-  load_tile<DH, 2, ROW>(sk, a.k + kv_base, kv_stride, tid);
-  load_tile<DH, 2, ROW>(sv, a.v + kv_base, kv_stride, tid);
-  cp_async_commit();
-
-  // This thread's two query rows, row_lo and row_lo + 8.
-  const int row_lo = q0 + warp * 16 + (lane >> 2);
-  const long long bh = ((long long)b * a.NQ + h) * T;
-  const float lse2[2] = {a.lse[bh + row_lo] * LOG2E, a.lse[bh + row_lo + 8] * LOG2E};
-  const float dis[2] = {a.di[bh + row_lo], a.di[bh + row_lo + 8]};
-
-  float acc[DH / 8][4];
-  zero(acc);
-  const int n_kblocks = qb + 1;  // key blocks up to the causal diagonal
-  for (int kb = 0; kb < n_kblocks; ++kb) {
-    const int buf = kb & 1;
-    if (kb + 1 < n_kblocks) {
-      const long long next = kv_base + (long long)(kb + 1) * FA_BLOCK * kv_stride;
-      load_tile<DH, 2, ROW>(sk + (buf ^ 1) * S::TILE, a.k + next, kv_stride, tid);
-      load_tile<DH, 2, ROW>(sv + (buf ^ 1) * S::TILE, a.v + next, kv_stride, tid);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-
-    const uint8_t* kt = sk + buf * S::TILE;
-    float p[8][4], ds[8][4];
-    zero(p);
-    zero(ds);
-    rows_x_rows<DH, ROW>(p, sq, warp * 16, kt, lane);  // S = Q K^T
-    probabilities<false>(p, sseg, q0 + warp * 16, kb * FA_BLOCK, lse2, nullptr, lane,
-                         scale_log2);
-    rows_x_rows<DH, ROW>(ds, sdo, warp * 16, sv + buf * S::TILE, lane);  // dP = dO V^T
-    score_grads<false>(ds, p, dis, nullptr, a.sm_scale);
-    acc_x_tile<DH, ROW>(acc, ds, kt, lane);  // dQ += dS K
-    __syncthreads();
-  }
-  cp_async_wait_all();
-
-  store_rows<DH>(a.dq + (((long long)b * T) * a.NQ + h) * DH * 2, (long long)a.NQ * DH, row_lo,
-                 acc, lane);
-}
-
-template <int DH, bool DQ>
-int launch_bwd(const BwdArgs& a, int B, void* stream) {
-  auto kernel = DQ ? flash_attention_dq_kernel<DH> : flash_attention_dkv_kernel<DH>;
-  const size_t smem = FlashShape<DH, 2>::bwd_smem_bytes(a.T);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(a.T / FA_BLOCK, DQ ? a.NQ : a.NKV, B);
-  kernel<<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------
-// float32: 3xTF32 kernels of eight warps on swizzled tiles (the note above).
-
 // probabilities over a warp's 16 x 32 score fragment: s[j][e] (row
 // row0 + g + (e >> 1) * 8, column col0 + 8j + 2t + (e & 1)), with the rows'
 // segment ids row_seg and the 32 columns' col_seg. KEY_ROWS (dk/dv): the
 // rows are keys, and the columns' lse comes from lse_cols; else the rows
 // are queries with lse2_rows = lse * log2(e) of rows g and g + 8.
 template <bool KEY_ROWS>
-__device__ __forceinline__ void probabilities_f32(float (&s)[4][4], const int (&row_seg)[2],
-                                                  const int* col_seg, int row0, int col0,
-                                                  const float (&lse2_rows)[2],
-                                                  const float* lse_cols, int lane,
-                                                  float scale_log2) {
+__device__ __forceinline__ void probabilities(float (&s)[4][4], const int (&row_seg)[2],
+                                              const int* col_seg, int row0, int col0,
+                                              const float (&lse2_rows)[2], const float* lse_cols,
+                                              int lane, float scale_log2) {
   const int g = lane >> 2;
   const int t = lane & 3;
 #pragma unroll
@@ -414,10 +197,9 @@ __device__ __forceinline__ void probabilities_f32(float (&s)[4][4], const int (&
 // ds = sm_scale * p * (dp - di), in place in dp; di of the query (the
 // columns' staged values in dk/dv, the rows' in dq).
 template <bool KEY_ROWS>
-__device__ __forceinline__ void score_grads_f32(float (&dp)[4][4], const float (&p)[4][4],
-                                                const float (&di_rows)[2],
-                                                const float* di_cols, int lane,
-                                                float sm_scale) {
+__device__ __forceinline__ void score_grads(float (&dp)[4][4], const float (&p)[4][4],
+                                            const float (&di_rows)[2], const float* di_cols,
+                                            int lane, float sm_scale) {
   const int t = lane & 3;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -427,6 +209,384 @@ __device__ __forceinline__ void score_grads_f32(float (&dp)[4][4], const float (
       dp[j][e] = sm_scale * p[j][e] * (dp[j][e] - di);
     }
 }
+
+// ---------------------------------------------------------------------
+// bf16: wgmma kernels of warpgroups on swizzled tiles (the note above).
+
+// Each block: GROUPS warpgroups of 64 fixed rows (keys in dk/dv, queries
+// in dq), a ring of STAGES streamed pairs, BLOCKS blocks an SM.
+constexpr int DKV_GROUPS = 1, DKV_STAGES = 3, DKV_BLOCKS = 2;
+constexpr int DQ_GROUPS = 2, DQ_STAGES = 2, DQ_BLOCKS = 2;
+
+// A bf16 backward block of GROUPS warpgroups and its shared memory, from
+// its first 1024-byte boundary: two fixed swizzled tiles of FIXED_ROWS rows
+// (K and V, or Q and dO), STAGES stages of a streamed pair of
+// STREAM_ROWS-row tiles (Q and dO, or K and V), then per stage its rows'
+// lse, di and segment ids.
+template <int DH, int GROUPS, int STAGES>
+struct Bf16BwdShape {
+  static constexpr int FIXED_ROWS = 64 * GROUPS;
+  static constexpr int THREADS = 128 * GROUPS;
+  static constexpr int FIXED = FIXED_ROWS * DH * 2;
+  static constexpr int STREAM = STREAM_ROWS * DH * 2;
+  static constexpr int RING = 2 * FIXED;
+  static constexpr int STAGED = RING + STAGES * 2 * STREAM;
+  static constexpr int BYTES = STAGED + STAGES * 3 * STREAM_ROWS * 4 + 1024;  // + alignment
+  static_assert(BYTES <= 232448, "a bf16 backward block exceeds shared memory");
+};
+
+// Starts the copies of one streamed pair into ring stage `stage`: both
+// 32-row tiles (rows of `first` and `second`, row stride `stride` bytes)
+// and the staged values of its rows: lse and di (when lse is not null;
+// rows [lse_row, +32) of [B, NQ, T]) and the segment ids from seg.
+template <class S, int DH>
+__device__ __forceinline__ void load_pair(uint8_t* smem, int stage, const uint8_t* first,
+                                          const uint8_t* second, long long stride,
+                                          const float* lse, const float* di, long long lse_row,
+                                          const int* seg, int tid) {
+  uint8_t* tiles = smem + S::RING + stage * 2 * S::STREAM;
+  load_swizzled<DH, STREAM_ROWS, S::THREADS>(tiles, first, stride, tid);
+  load_swizzled<DH, STREAM_ROWS, S::THREADS>(tiles + S::STREAM, second, stride, tid);
+  // 16-byte copies: each row of 32 values is 128-byte aligned (T % 64 == 0).
+  float* rows = reinterpret_cast<float*>(smem + S::STAGED) + stage * 3 * STREAM_ROWS;
+  const int c = 4 * (tid % 8);
+  if (tid < 8) {
+    cp_async16(rows + 2 * STREAM_ROWS + c, seg + c, 16);
+  } else if (lse != nullptr && tid < 24) {
+    const bool is_lse = tid < 16;
+    cp_async16(rows + (is_lse ? 0 : STREAM_ROWS) + c, (is_lse ? lse : di) + lse_row + c, 16);
+  }
+}
+
+// The descriptor of k16 step kk of a K-major swizzled tile of ROWS rows,
+// from that of its first step: panel kk / 4, bytes 32 (kk % 4) into it.
+template <int ROWS>
+__device__ __forceinline__ uint64_t k_step(uint64_t desc, int kk) {
+  return desc + (uint64_t)(((kk >> 2) * ROWS * 128 + (kk & 3) * 32) >> 4);
+}
+
+// D[64 x 32] = A[64 x DH] . B[32 x DH]^T for warpgroup wg: A rows 64 wg ..
+// of a fixed tile, B a streamed tile, both K-major; issued, not waited for.
+template <int DH, int FIXED_ROWS>
+__device__ __forceinline__ void rows_x_stream(float (&d)[4][4], const uint8_t* fixed,
+                                              const uint8_t* stream, int wg) {
+  const uint64_t a = wgmma_desc(fixed + wg * 64 * 128, 16, 1024);
+  const uint64_t b = wgmma_desc(stream, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    wgmma_ss<STREAM_ROWS>(*reinterpret_cast<float(*)[16]>(&d), k_step<FIXED_ROWS>(a, kk),
+                          k_step<STREAM_ROWS>(b, kk));
+  }
+}
+
+// Rounds a warpgroup's 64 x 32 accumulator to bf16 A fragments: n-tiles
+// 2c and 2c + 1 are k16 chunk c.
+__device__ __forceinline__ void to_a_fragments(const float (&x)[4][4], uint32_t (&xf)[2][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    xf[j >> 1][(j & 1) * 2] = pack_bf16(x[j][0], x[j][1]);
+    xf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[j][2], x[j][3]);
+  }
+}
+
+// out[64 x DH] += X[64 x 32] . B[32 x DH]: X as A fragments in registers,
+// B a streamed tile read MN-major (k16 step c is its rows 16c .., its
+// 64-column panels STREAM_ROWS * 128 bytes apart); issued, not waited for.
+template <int DH>
+__device__ __forceinline__ void acc_x_stream(float (&out)[DH / 2], const uint32_t (&xf)[2][4],
+                                             const uint8_t* stream) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    wgmma_rs_t<DH>(out, xf[c], wgmma_desc(stream + c * 16 * 128, STREAM_ROWS * 128, 1024));
+  }
+}
+
+// Writes a warpgroup's 64 x DH accumulator (warp w's rows 16w + g and
+// 16w + g + 8 in the accumulator layout) as bf16 into its own rows
+// 64 wg .. of a swizzled tile of FR rows, which no product reads any more,
+// and, after the group's barrier, copies those rows to dst (row r at
+// dst + r * stride elements) by 16-byte stores of whole rows.
+template <int DH, int FR>
+__device__ __forceinline__ void store_group(const float (&acc)[DH / 2], uint8_t* tile, int wg,
+                                            uint8_t* dst, long long stride, int tid) {
+  const int lane = tid & 31;
+  const int row0 = 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      *reinterpret_cast<uint32_t*>(tile + swizzled<FR>(row0 + 8 * r, j) + 4 * (lane & 3)) =
+          pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  constexpr int CHUNKS = DH / 8;
+#pragma unroll
+  for (int i = 0; i < 64 * CHUNKS / 128; ++i) {
+    const int c = (tid & 127) + 128 * i;
+    const int r = c / CHUNKS;
+    *reinterpret_cast<uint4*>(dst + (long long)r * stride * 2 + (c % CHUNKS) * 16) =
+        *reinterpret_cast<const uint4*>(tile + swizzled<FR>(64 * wg + r, c % CHUNKS));
+  }
+}
+
+// The top of every iteration of a bf16 backward block: this thread's
+// copies of pair it have landed (only the newer of the two groups in
+// flight may pend) and are made visible to wgmma, and after the barrier no
+// warpgroup reads the stage that the next load refills (each waited for
+// its products of the last pair).
+template <int STAGES>
+__device__ __forceinline__ void ring_wait() {
+  cp_async_wait<STAGES - 2>();
+  fence_proxy_async();
+  __syncthreads();
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128 * DKV_GROUPS, DKV_BLOCKS)
+    flash_attention_dkv_kernel(BwdArgs a) {
+  using S = Bf16BwdShape<DH, DKV_GROUPS, DKV_STAGES>;
+  constexpr int STAGES = DKV_STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint8_t* sk = smem;
+  const uint8_t* sv = smem + S::FIXED;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;  // warpgroup: keys k0 + 64 wg ..
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kb = blockIdx.z;  // the earliest keys (the most queries) first
+  const int T = a.T;
+  const int group = a.NQ / a.NKV;
+  const int k0 = kb * S::FIXED_ROWS;
+  const int kg = k0 + 64 * wg;             // the warpgroup's first key; none when kg >= T
+  const int kw = kg + 16 * (warp & 3);     // this warp's first key
+  const long long q_stride = (long long)a.NQ * DH * 2;
+  const long long kv_stride = (long long)a.NKV * DH * 2;
+  const float scale_log2 = a.sm_scale * LOG2E;
+  const float no_rows[2] = {0.0f, 0.0f};
+  const int* seg = a.seg + (long long)b * T;
+
+  const long long kv_off = ((long long)b * T + k0) * kv_stride + (long long)hk * DH * 2;
+  const int n_keys = min(S::FIXED_ROWS, T - k0);
+  load_swizzled<DH, S::FIXED_ROWS, S::THREADS>(smem, a.k + kv_off, kv_stride, tid, n_keys);
+  load_swizzled<DH, S::FIXED_ROWS, S::THREADS>(smem + S::FIXED, a.v + kv_off, kv_stride, tid,
+                                               n_keys);
+
+  // Pairs (h, query tile): the group's heads, each over the 32-row tiles
+  // from the one holding key k0 on, through a ring of STAGES stages.
+  const int first = k0 / STREAM_ROWS;
+  const int span = T / STREAM_ROWS - first;
+  const int n_iter = group * span;
+  auto load = [&](int it) {
+    const int h = hk * group + it / span;
+    const int q0 = (first + it % span) * STREAM_ROWS;
+    const long long off = ((long long)b * T + q0) * q_stride + (long long)h * DH * 2;
+    load_pair<S, DH>(smem, it % STAGES, a.q + off, a.dout + off, q_stride, a.lse, a.di,
+                     ((long long)b * a.NQ + h) * T + q0, seg + q0, tid);
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_iter) load(i);
+    cp_async_commit();  // K and V join the first group
+  }
+
+  // This thread's two keys, kw + g and kw + g + 8, and whether the
+  // warpgroup's 64 keys share one segment, s0.
+  int key_seg[2] = {0, 0}, s0 = 0;
+  bool uniform = false;
+  if (kg < T) {
+    uniform = rows_share_segment<64>(seg, kg, lane, s0);
+    key_seg[0] = seg[kw + (lane >> 2)];
+    key_seg[1] = seg[kw + (lane >> 2) + 8];
+  }
+
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.0f;
+  for (int it = 0; it < n_iter; ++it) {
+    ring_wait<STAGES>();
+    if (it + STAGES - 1 < n_iter) load(it + STAGES - 1);
+    cp_async_commit();
+
+    const int stage = it % STAGES;
+    const int q0 = (first + it % span) * STREAM_ROWS;
+    const uint8_t* qt = smem + S::RING + stage * 2 * S::STREAM;
+    const uint8_t* dot = qt + S::STREAM;
+    const float* rows = reinterpret_cast<const float*>(smem + S::STAGED) + stage * 3 * STREAM_ROWS;
+    const int* q_seg = reinterpret_cast<const int*>(rows + 2 * STREAM_ROWS);
+    // The same for all four warps of the group, which issue each wgmma together.
+    if (kg >= T || !takes_query_tile<64>(q_seg, q0, kg, uniform, s0, lane)) continue;
+    float p[4][4], ds[4][4];
+    zero(p);
+    zero(ds);
+    wgmma_fence();
+    rows_x_stream<DH, S::FIXED_ROWS>(p, sk, qt, wg);  // S^T = K Q^T
+    wgmma_commit();
+    rows_x_stream<DH, S::FIXED_ROWS>(ds, sv, dot, wg);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(*reinterpret_cast<float(*)[16]>(&p));
+    probabilities<true>(p, key_seg, q_seg, kw, q0, no_rows, rows, lane, scale_log2);
+    uint32_t pf[2][4], sf[2][4];
+    to_a_fragments(p, pf);
+    wgmma_fence();
+    acc_x_stream<DH>(dv, pf, dot);  // dV += P^T dO, under dS below
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(*reinterpret_cast<float(*)[16]>(&ds));
+    score_grads<true>(ds, p, no_rows, rows + STREAM_ROWS, lane, a.sm_scale);
+    to_a_fragments(ds, sf);
+    wgmma_fence();
+    acc_x_stream<DH>(dk, sf, qt);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dk);
+    fence_operands(dv);
+    fence_operands(*reinterpret_cast<uint32_t(*)[8]>(&pf));
+    fence_operands(*reinterpret_cast<uint32_t(*)[8]>(&sf));
+  }
+  cp_async_wait_all();
+
+  if (kg < T) {
+    // Through the group's own rows of K and V, which no product reads now.
+    const long long stride = (long long)a.NKV * DH;
+    const long long base = (((long long)b * T + kg) * a.NKV + hk) * DH * 2;
+    store_group<DH, S::FIXED_ROWS>(dk, smem, wg, a.dk + base, stride, tid);
+    store_group<DH, S::FIXED_ROWS>(dv, smem + S::FIXED, wg, a.dv + base, stride, tid);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128 * DQ_GROUPS, DQ_BLOCKS)
+    flash_attention_dq_kernel(BwdArgs a) {
+  using S = Bf16BwdShape<DH, DQ_GROUPS, DQ_STAGES>;
+  constexpr int STAGES = DQ_STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint8_t* sq = smem;
+  const uint8_t* sdo = smem + S::FIXED;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;  // warpgroup: queries q0 + 64 wg ..
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // the latest queries (the most keys) first
+  const int T = a.T;
+  const int hk = h / (a.NQ / a.NKV);
+  const int q0 = qb * S::FIXED_ROWS;
+  const int qg = q0 + 64 * wg;          // the warpgroup's first query; none when qg >= T
+  const int qw = qg + 16 * (warp & 3);  // this warp's first query
+  const int n_queries = min(S::FIXED_ROWS, T - q0);
+  const long long q_stride = (long long)a.NQ * DH * 2;
+  const long long kv_stride = (long long)a.NKV * DH * 2;
+  const long long q_off = ((long long)b * T + q0) * q_stride + (long long)h * DH * 2;
+  const long long kv_base = (long long)b * T * kv_stride + (long long)hk * DH * 2;
+  const float scale_log2 = a.sm_scale * LOG2E;
+  const int* seg = a.seg + (long long)b * T;
+
+  load_swizzled<DH, S::FIXED_ROWS, S::THREADS>(smem, a.q + q_off, q_stride, tid, n_queries);
+  load_swizzled<DH, S::FIXED_ROWS, S::THREADS>(smem + S::FIXED, a.dout + q_off, q_stride, tid,
+                                               n_queries);
+  auto load = [&](int kt) {
+    const long long off = kv_base + (long long)kt * STREAM_ROWS * kv_stride;
+    load_pair<S, DH>(smem, kt % STAGES, a.k + off, a.v + off, kv_stride, nullptr, nullptr, 0,
+                     seg + kt * STREAM_ROWS, tid);
+  };
+  const int n_tiles = (q0 + n_queries) / STREAM_ROWS;  // key tiles up to the last query
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) load(i);
+    cp_async_commit();  // Q and dO join the first group
+  }
+
+  // This thread's two query rows, row_lo and row_lo + 8, and whether the
+  // warpgroup's 64 queries share one segment, s0.
+  const int row_lo = qw + (lane >> 2);
+  float lse2[2] = {0.0f, 0.0f}, dis[2] = {0.0f, 0.0f};
+  int q_seg[2] = {0, 0}, s0 = 0;
+  bool uniform = false;
+  if (qg < T) {
+    const long long bh = ((long long)b * a.NQ + h) * T;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = a.lse[bh + row_lo + 8 * r] * LOG2E;
+      dis[r] = a.di[bh + row_lo + 8 * r];
+      q_seg[r] = seg[row_lo + 8 * r];
+    }
+    uniform = rows_share_segment<64>(seg, qg, lane, s0);
+  }
+
+  float dq[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq[i] = 0.0f;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    ring_wait<STAGES>();
+    if (kt + STAGES - 1 < n_tiles) load(kt + STAGES - 1);
+    cp_async_commit();
+
+    const int stage = kt % STAGES;
+    const int k0 = kt * STREAM_ROWS;
+    const uint8_t* k_tile = smem + S::RING + stage * 2 * S::STREAM;
+    const uint8_t* v_tile = k_tile + S::STREAM;
+    const int* k_seg =
+        reinterpret_cast<const int*>(smem + S::STAGED) + (stage * 3 + 2) * STREAM_ROWS;
+    // The same for all four warps of the group, which issue each wgmma together.
+    if (qg >= T || !takes_tile<STREAM_ROWS, 64>(k_seg, k0, qg, uniform, s0, lane)) continue;
+    float p[4][4], ds[4][4];
+    zero(p);
+    zero(ds);
+    wgmma_fence();
+    rows_x_stream<DH, S::FIXED_ROWS>(p, sq, k_tile, wg);  // S = Q K^T
+    wgmma_commit();
+    rows_x_stream<DH, S::FIXED_ROWS>(ds, sdo, v_tile, wg);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(*reinterpret_cast<float(*)[16]>(&p));
+    probabilities<false>(p, q_seg, k_seg, qw, k0, lse2, nullptr, lane, scale_log2);
+    wgmma_wait<0>();
+    fence_operands(*reinterpret_cast<float(*)[16]>(&ds));
+    score_grads<false>(ds, p, dis, nullptr, lane, a.sm_scale);
+    uint32_t sf[2][4];
+    to_a_fragments(ds, sf);
+    wgmma_fence();
+    acc_x_stream<DH>(dq, sf, k_tile);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dq);
+    fence_operands(*reinterpret_cast<uint32_t(*)[8]>(&sf));
+  }
+  cp_async_wait_all();
+
+  if (qg < T) {
+    // Through the group's own rows of Q, which no product reads now.
+    const long long stride = (long long)a.NQ * DH;
+    store_group<DH, S::FIXED_ROWS>(dq, smem, wg,
+                                   a.dq + (((long long)b * T + qg) * a.NQ + h) * DH * 2, stride,
+                                   tid);
+  }
+}
+
+template <int DH, bool DQ>
+int launch_bwd(const BwdArgs& a, int B, void* stream) {
+  auto kernel = DQ ? flash_attention_dq_kernel<DH> : flash_attention_dkv_kernel<DH>;
+  using Dkv = Bf16BwdShape<DH, DKV_GROUPS, DKV_STAGES>;
+  using Dq = Bf16BwdShape<DH, DQ_GROUPS, DQ_STAGES>;
+  const int smem = DQ ? Dq::BYTES : Dkv::BYTES;
+  const int rows = DQ ? Dq::FIXED_ROWS : Dkv::FIXED_ROWS;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(DQ ? a.NQ : a.NKV, B, (a.T + rows - 1) / rows);
+  kernel<<<grid, DQ ? Dq::THREADS : Dkv::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// float32: 3xTF32 kernels of eight warps on swizzled tiles (the note above).
 
 template <int DH>
 __global__ void __launch_bounds__(F32_THREADS, 1) flash_attention_dkv_f32_kernel(BwdArgs a) {
@@ -497,11 +657,11 @@ __global__ void __launch_bounds__(F32_THREADS, 1) flash_attention_dkv_f32_kernel
       float p[4][4], ds[4][4];
       zero(p);
       rows_x_rows_f32<DH, 4>(p, sk, warp * 16, q_hi, q_lo, lane);  // S^T = K Q^T
-      probabilities_f32<true>(p, key_seg, q_seg, kw, q0, no_rows, rows, lane, scale_log2);
+      probabilities<true>(p, key_seg, q_seg, kw, q0, no_rows, rows, lane, scale_log2);
       acc_x_tile_f32<DH, STREAM_ROWS>(dv, p, do_hi, do_lo, lane);  // dV += P^T dO
       zero(ds);
       rows_x_rows_f32<DH, 4>(ds, sv, warp * 16, do_hi, do_lo, lane);  // dP^T = V dO^T
-      score_grads_f32<true>(ds, p, no_rows, rows + STREAM_ROWS, lane, a.sm_scale);
+      score_grads<true>(ds, p, no_rows, rows + STREAM_ROWS, lane, a.sm_scale);
       acc_x_tile_f32<DH, STREAM_ROWS>(dk, ds, q_hi, q_lo, lane);  // dK += dS^T Q
     }
   }
@@ -585,10 +745,10 @@ __global__ void __launch_bounds__(F32_THREADS, 1) flash_attention_dq_f32_kernel(
       float p[4][4], ds[4][4];
       zero(p);
       rows_x_rows_f32<DH, 4>(p, sq, warp * 16, k_hi, k_lo, lane);  // S = Q K^T
-      probabilities_f32<false>(p, q_seg, k_seg, qw, k0, lse2, nullptr, lane, scale_log2);
+      probabilities<false>(p, q_seg, k_seg, qw, k0, lse2, nullptr, lane, scale_log2);
       zero(ds);
       rows_x_rows_f32<DH, 4>(ds, sdo, warp * 16, v_hi, v_lo, lane);  // dP = dO V^T
-      score_grads_f32<false>(ds, p, dis, nullptr, lane, a.sm_scale);
+      score_grads<false>(ds, p, dis, nullptr, lane, a.sm_scale);
       acc_x_tile_f32<DH, STREAM_ROWS>(dq, ds, k_hi, k_lo, lane);  // dQ += dS K
     }
   }

@@ -2,25 +2,25 @@
 // forward (flash_attention.cu) and the backward's dq and dk/dv kernels
 // (flash_attention_bwd.cu).
 //
-// A bf16 tile is rows of DH values copied from device memory by cp.async
-// into shared memory whose rows are padded by 16 bytes, so that ldmatrix
-// (8 rows of 16 bytes at a stride of 4 banks mod 32) is free of bank
-// conflicts. The bf16 products are of two shapes over a warp's MT tiles of
-// 16 rows, which share every B fragment (the forward takes MT = 2, the
-// backward 1):
+// The bf16 forward's tile is rows of DH values copied from device memory
+// by cp.async into shared memory whose rows are padded by 16 bytes, so
+// that ldmatrix (8 rows of 16 bytes at a stride of 4 banks mod 32) is free
+// of bank conflicts. Its products are of two shapes over a warp's MT tiles
+// of 16 rows, which share every B fragment:
 //
 //   rows_x_rows_m: acc[16 x 8NT] += A[16 x DH] . B[8NT x DH]^T, both tiles
-//     with the depth contiguous (S = Q K^T, dP = dO V^T and their
-//     transposes);
+//     with the depth contiguous (S = Q K^T);
 //   acc_x_tile_m:  out[16 x DH] += X[16 x DEPTH] . B[DEPTH x DH], X an
 //     accumulator left in registers and B row-major over its DEPTH rows
-//     (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K);
+//     (O += P V);
 //
 // on mma.sync m16n8k16 with f32 accumulation. The f32 kernels run the same
 // two shapes as 3xTF32 (m16n8k8) on unpadded, swizzled tiles
 // (rows_x_rows_f32, acc_x_tile_f32, below), whose layout serves ldmatrix
 // and the 16-byte loads of acc_x_tile_f32 alike, with the streamed tiles
-// split into tf32 hi and lo once (load_stream, split_stream).
+// split into tf32 hi and lo once (load_stream, split_stream). The bf16
+// backward runs both shapes, and their transposes, on wgmma over tiles in
+// its 128-byte swizzled layout (load_swizzled, wgmma_ss, wgmma_rs_t).
 
 #pragma once
 
@@ -32,8 +32,6 @@
 namespace tiles {
 namespace {  // the header's internal namespace, reopened
 
-constexpr int FA_BLOCK = 64;     // rows per tile: queries or keys
-constexpr int FA_THREADS = 128;  // four warps of 16 rows
 constexpr float FA_MASK = -0.7f * FLT_MAX;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -49,22 +47,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Padded tiles of 64 rows of DH values of ELEM bytes.
+// Padded rows of DH values of ELEM bytes.
 template <int DH, int ELEM>
 struct FlashShape {
   static constexpr int ROW = DH * ELEM + 16;
-  static constexpr int TILE = FA_BLOCK * ROW;
   static constexpr int CHUNKS = DH * ELEM / 16;  // 16-byte chunks per row
-  // A bf16 backward block: two fixed tiles and two double-buffered
-  // streams, all of row stride ROW, then the segment ids.
-  static size_t bwd_smem_bytes(int T) { return 6 * TILE + sizeof(int) * (size_t)T; }
 };
 
 // cp.async of rows [0, n_rows) of ROWS rows of DH * ELEM bytes (row
 // stride `stride` bytes) into a tile of row stride ROW, by THREADS threads;
 // rows from n_rows on are left as they are. A caller that copies every row
 // leaves n_rows at ROWS, and the row test folds away.
-template <int DH, int ELEM, int ROW, int ROWS = FA_BLOCK, int THREADS = FA_THREADS>
+template <int DH, int ELEM, int ROW, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile(uint8_t* tile, const uint8_t* rows,
                                           long long stride, int tid, int n_rows = ROWS) {
   constexpr int CHUNKS = FlashShape<DH, ELEM>::CHUNKS;
@@ -107,14 +101,6 @@ __device__ __forceinline__ void rows_x_rows_m(float (&acc)[MT][NT][4], const uin
   }
 }
 
-// acc[16 x 64] += A[row0 .. row0 + 16) . B[0 .. 64)^T: the backward's one tile.
-template <int DH, int ROW>
-__device__ __forceinline__ void rows_x_rows(float (&acc)[8][4], const uint8_t* a_tile, int row0,
-                                            const uint8_t* b_tile, int lane) {
-  rows_x_rows_m<DH, ROW, 1, 8>(*reinterpret_cast<float(*)[1][8][4]>(&acc), a_tile, row0, b_tile,
-                               lane);
-}
-
 // out[m][16 x DH] += X[m][16 x DEPTH] . B[DEPTH x DH], bf16, for MT tiles of
 // 16 rows that share every B fragment: X in the m16n8 accumulator layout
 // (x[m][j][e]: row g + (e >> 1) * 8, column j * 8 + 2t + (e & 1)), B a tile
@@ -148,14 +134,6 @@ __device__ __forceinline__ void acc_x_tile_m(float (&out)[MT][DH / 8][4],
     }
 }
 
-// out[16 x DH] += X[16 x 64] . B[64 x DH]: the backward's one tile.
-template <int DH, int ROW>
-__device__ __forceinline__ void acc_x_tile(float (&out)[DH / 8][4], const float (&x)[8][4],
-                                           const uint8_t* b_tile, int lane) {
-  acc_x_tile_m<DH, ROW, 1, 64>(*reinterpret_cast<float(*)[1][DH / 8][4]>(&out),
-                               *reinterpret_cast<const float(*)[1][8][4]>(&x), b_tile, lane);
-}
-
 // Writes this thread's part of a warp's 16 x DH accumulator to rows row_lo
 // and row_lo + 8 of a [.., DH] bf16 output (row r at dst + r * stride
 // elements), as bf16 pairs.
@@ -172,6 +150,232 @@ __device__ __forceinline__ void store_rows(uint8_t* dst, long long stride, int r
       *reinterpret_cast<uint32_t*>(row + col * 2) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// bf16 tiles of the backward, in the 128-byte swizzled layout that wgmma's
+// shared-memory descriptors read: a tile of ROWS rows of DH values is
+// DH / 64 panels of 64 columns, panel p at p * ROWS * 128 bytes, row r of a
+// panel at r * 128 bytes and its 16-byte chunk c (columns 8c .. 8c + 7 of
+// the panel) at chunk c ^ (r & 7). A tile starts on a 1024-byte boundary,
+// so the XOR is the one the hardware takes from address bits 4-6 and 7-9.
+// ldmatrix reads 8 consecutive rows at one logical chunk, whose physical
+// chunks all differ: no bank conflicts, plain or transposed.
+
+// Byte offset of 16-byte chunk `chunk` (columns 8 chunk ..) of row r.
+template <int ROWS>
+__device__ __forceinline__ int swizzled(int r, int chunk) {
+  return (chunk >> 3) * (ROWS * 128) + r * 128 + (((chunk & 7) ^ (r & 7)) << 4);
+}
+
+// Waits until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The first 1024-byte boundary at or after p in shared memory.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// cp.async of rows [0, n_rows) of ROWS rows of DH bf16 values (row stride
+// `stride` bytes) into a swizzled tile, by THREADS threads; rows from
+// n_rows on are left as they are.
+template <int DH, int ROWS, int THREADS>
+__device__ __forceinline__ void load_swizzled(uint8_t* tile, const uint8_t* rows,
+                                              long long stride, int tid, int n_rows = ROWS) {
+  constexpr int CHUNKS = DH / 8;
+  static_assert(ROWS * CHUNKS % THREADS == 0, "a tile's chunks do not split over the threads");
+#pragma unroll
+  for (int i = 0; i < ROWS * CHUNKS / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / CHUNKS;
+    const int ch = c % CHUNKS;
+    if (n_rows == ROWS || r < n_rows) {
+      cp_async16(tile + swizzled<ROWS>(r, ch), rows + r * stride + ch * 16, 16);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// wgmma (sm_90a): a warpgroup of 4 warps issues one asynchronous product of
+// 64 rows, D[64 x N] += A[64 x 16] . B[16 x N], bf16 -> f32, B read from
+// shared memory through a descriptor, A from shared memory (wgmma_ss) or
+// from registers (wgmma_rs_t). Warp w of the group holds rows 16w .. 16w +
+// 15 of D in the m16n8 accumulator layout, d[4j + e] = row g + 8 (e >> 1),
+// column 8j + 2t + (e & 1) (g = lane / 4, t = lane % 4), and of A in the
+// m16n8k16 A layout; so an accumulator's n-tiles 2c and 2c + 1, rounded to
+// bf16, are the A fragment of k16 chunk c, as with mma.sync. The
+// operands are swizzled tiles (above): K-major (B's depth contiguous: the
+// rows of a tile are B's columns, as in S = Q K^T) or, in wgmma_rs_t, MN-major
+// (B's depth is the tile's rows: dQ += dS K). Registers of D and A must
+// keep their values until the group that reads them is waited for:
+// wgmma_wait and fence_operands pin them.
+
+// The 128-byte-swizzle descriptor of a shared-memory operand at p: lbo
+// and sbo in bytes, the distance between 64-column panels of a MN-major
+// operand and between 8-row groups.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes the compiler treat x as rewritten here, so that no read of it
+// moves above a wgmma_wait and its register is not reused before one.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+// Writes made by this thread's generic proxy (cp.async, st.shared) visible
+// to the async proxy that wgmma reads shared memory through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x N] += A . B, both from swizzled K-major tiles.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+// D[64 x N] += A . B, A in registers, B from a MN-major swizzled tile.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+      "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// ---------------------------------------------------------------------
+// The skip rule of every flash kernel: a warp (or a warpgroup) skips a
+// streamed tile of 32 rows in which the mask allows no (query, key) pair
+// of its own rows. The skip is exact: such a tile adds p = 0 (and so
+// ds = 0) to every sum.
+
+// Whether a warp takes a key tile of KEYS keys from k0 (its ids in kseg)
+// for its ROWS queries from qw (`uniform` when all are in segment s0): not
+// when no (query, key) pair of the tile is allowed. Causal alone decides for
+// rows of several segments. Lane l reads keys l, l + 32, ...
+template <int KEYS, int ROWS>
+__device__ __forceinline__ bool takes_tile(const int* kseg, int k0, int qw, bool uniform, int s0,
+                                           int lane) {
+  if (k0 > qw + ROWS - 1) return false;
+  bool hit = !uniform;
+#pragma unroll
+  for (int i = 0; i < KEYS / 32; ++i)
+    hit |= kseg[lane + 32 * i] == s0 && k0 + lane + 32 * i <= qw + ROWS - 1;
+  return __any_sync(0xffffffffu, hit);
+}
+
+// The segment ids of this thread's rows (row_lo + 16m + 8r of MT 16-row
+// tiles) and whether the warp's rows share one, s0.
+template <int MT>
+__device__ __forceinline__ void row_segments(const int* seg, int row_lo, int (&qseg)[MT][2],
+                                             bool& uniform, int& s0) {
+  bool same = true;
+  s0 = __shfl_sync(0xffffffffu, seg[row_lo], 0);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      qseg[m][r] = seg[row_lo + 16 * m + 8 * r];
+      same &= qseg[m][r] == s0;
+    }
+  uniform = __all_sync(0xffffffffu, same);
+}
+
+// Whether the ROWS rows from r0 (a multiple of 32 of them, all before T)
+// share one segment, s0 (that of row r0). Lane l reads rows l, l + 32, ...
+template <int ROWS>
+__device__ __forceinline__ bool rows_share_segment(const int* seg, int r0, int lane, int& s0) {
+  s0 = seg[r0];
+  bool same = true;
+#pragma unroll
+  for (int i = 0; i < ROWS / 32; ++i) same &= seg[r0 + lane + 32 * i] == s0;
+  return __all_sync(0xffffffffu, same);
+}
+
+// Whether a dk/dv warp or warpgroup (ROWS keys from kw, all in segment
+// s0 when `uniform`) takes the query tile of 32 rows from q0 (their ids in
+// qseg): not when every query lies before kw (causal), nor, when uniform,
+// when no query from kw on lies in s0. Lane l reads query l.
+template <int ROWS>
+__device__ __forceinline__ bool takes_query_tile(const int* qseg, int q0, int kw, bool uniform,
+                                                 int s0, int lane) {
+  if (q0 + 31 < kw) return false;
+  const bool hit = !uniform || (qseg[lane] == s0 && q0 + lane >= kw);
+  return __any_sync(0xffffffffu, hit);
 }
 
 // ---------------------------------------------------------------------

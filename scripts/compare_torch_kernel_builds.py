@@ -1,6 +1,6 @@
-"""Do the port's retrieval kernels and its flash-attention bf16 backward
+"""Do the port's retrieval kernels and its flash-attention float32 backward
 give the same bits as another tree's build of them, and are both builds'
-flash-attention forwards right and how fast? On one GPU.
+flash-attention forwards and bf16 backward right and how fast? On one GPU.
 
     python3 scripts/compare_torch_kernel_builds.py --other unpacked/parent
 
@@ -15,25 +15,29 @@ in both on the same inputs: ``bin_topk_carry`` (bf16), ``bin_topk_carry_f32``
 (the same corpus in float32), ``bin_topk_int8_carry`` (the same corpus and
 queries quantized per row) and ``windowed_scores`` (bf16) at the serving
 shape (300,000 valid rows of a 300,032 x 1024 unit-row corpus, B = 128,
-bins = 4096, window 8) and two small shapes, and the backward's bf16 entries
-``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` at the training
-shape (B = 32, T = 256, 16/8 heads, DH 128, ragged and left-padded rows, dO
-zero on pad rows) and a small DH 64 shape; it prints, per kernel and shape,
-whether the outputs are equal bit for bit. The forwards
-(``flash_attention_fwd``, bf16, and ``flash_attention_fwd_f32``, without
-lse) sum in another order in each build by design, so each build's output
-is held instead against the plain twin ``attention_flash_plain`` within
-``ops.flash_attention.kernel_tolerance`` on valid rows, finite everywhere,
-at the serving shape (B = 64, T = 512, 16/8 heads, DH 128, ragged lengths)
-and a small DH 64 shape. Then the CUDA-event mean of 20 launches of each
-build's forwards at chip_smoke.py's serving shape (B 64 x T 512, its ragged
-and left-padded mask, then phase 4d's embed batch's mask) and training
-shape (B 32 x T 256, the backward check's mask, then 5b's documents' mask
-and full rows), and of the backward entries, bf16 and float32, at the
-training shape, each in turns (other, this, this, other); then, per kernel
-function of each build, the registers and spill bytes ``ptxas -v`` reports.
-Exits 1 if any output differs or a forward leaves its tolerance. Needs a
-CUDA device and nvcc; exits 2 without a device.
+bins = 4096, window 8) and two small shapes, and the backward's float32
+entries ``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32``
+at the training shape (B = 32, T = 256, 16/8 heads, DH 128, ragged and
+left-padded rows, dO zero on pad rows) and a small DH 64 shape; it prints,
+per kernel and shape, whether the outputs are equal bit for bit. The
+forwards (``flash_attention_fwd``, bf16, and ``flash_attention_fwd_f32``,
+without lse) and the bf16 backward (``flash_attention_bwd_dq``,
+``flash_attention_bwd_dkv``) sum in another order in each build by design,
+so each build's output is held instead against its plain twin on valid
+rows, finite everywhere: the forwards against ``attention_flash_plain``
+within ``ops.flash_attention.kernel_tolerance`` at the serving shape (B =
+64, T = 512, 16/8 heads, DH 128, ragged lengths) and a small DH 64 shape,
+the backward's dq, dk and dv against ``attention_flash_bwd_plain`` within
+``bwd_kernel_tolerance`` at the backward's two shapes. Then the CUDA-event
+mean of 20 launches of each build's forwards at chip_smoke.py's serving
+shape (B 64 x T 512, its ragged and left-padded mask, then phase 4d's
+embed batch's mask) and training shape (B 32 x T 256, the backward check's
+mask, then 5b's documents' mask and full rows), and of the backward
+entries, bf16 and float32, at the training shape on its check mask, 5b's
+documents and full rows, each in turns (other, this, this, other); then,
+per kernel function of each build, the registers and spill bytes
+``ptxas -v`` reports. Exits 1 if any output differs or leaves its
+tolerance. Needs a CUDA device and nvcc; exits 2 without a device.
 """
 
 import argparse
@@ -322,36 +326,81 @@ def run_bwd(lib, inputs, dq_entry: bool) -> list[torch.Tensor]:
 
 
 def compare_bwd(builds) -> tuple[list[dict], bool]:
-    """The bf16 backward entries of both builds on the same inputs."""
+    """The backward entries of both builds on the same inputs: the bf16
+    ones, whose sum order may differ by design between builds, each
+    held against the plain twin ``attention_flash_bwd_plain`` within
+    ``bwd_kernel_tolerance``, finite everywhere; the float32 ones bit for
+    bit against the other build."""
+    sys.path.insert(0, str(REPO))
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
     results, ok = [], True
-    for b, t, nq, nkv, dh in BWD_SHAPES:
-        inputs = bwd_inputs(b, t, nq, nkv, dh, torch.bfloat16)
-        for dq_entry in (True, False):
-            outs = {tag: run_bwd(libs["flash_attention_bwd"][0], inputs, dq_entry)
-                    for tag, libs in builds.items()}
-            torch.cuda.synchronize()
-            same = all(torch.equal(x, y) for x, y in zip(outs["this"], outs["other"]))
-            ok &= same
-            results.append({
-                "kernel": "flash_attention_bwd_" + ("dq" if dq_entry else "dkv"),
-                "dtype": "torch.bfloat16", "batch": b, "seq": t, "nq": nq, "nkv": nkv,
-                "dh": dh, "bit_identical": same,
-            })
-            print(json.dumps(results[-1]), flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, nq, nkv, dh in BWD_SHAPES:
+            inputs = bwd_inputs(b, t, nq, nkv, dh, dtype)
+            q, k, v, seg, dout, lse, di = inputs
+            if dtype == torch.bfloat16:
+                out = FA.attention_flash_plain(q, k, v, seg, dh**-0.5)
+                want = FA.attention_flash_bwd_plain(q, k, v, seg, out, lse, dout, dh**-0.5)
+                tols = FA.bwd_kernel_tolerance(q, k, v, seg, lse, dout, di, dh**-0.5)
+            for dq_entry in (True, False):
+                outs = {tag: run_bwd(libs["flash_attention_bwd"][0], inputs, dq_entry)
+                        for tag, libs in builds.items()}
+                torch.cuda.synchronize()
+                entry = "flash_attention_bwd_" + ("dq" if dq_entry else "dkv")
+                row = {"kernel": entry, "dtype": str(dtype), "batch": b, "seq": t, "nq": nq,
+                       "nkv": nkv, "dh": dh}
+                if dtype == torch.bfloat16:
+                    pick = slice(0, 1) if dq_entry else slice(1, 3)
+                    errs = {}
+                    for tag, got in outs.items():
+                        finite = all(bool(torch.isfinite(x).all()) for x in got)
+                        errs[tag] = [float((x.float() - ref.float()).abs().max()) if finite
+                                     else None for x, ref in zip(got, want[pick])]
+                    right = all(e is not None and e <= tol for errors in errs.values()
+                                for e, tol in zip(errors, tols[pick]))
+                    row.update({"max_abs_err": errs, "tol": tols[pick],
+                                "within_tolerance": right})
+                else:
+                    right = all(torch.equal(x, y) for x, y in zip(outs["this"], outs["other"]))
+                    row["bit_identical"] = right
+                ok &= right
+                results.append(row)
+                print(json.dumps(results[-1]), flush=True)
+            del inputs
     return results, ok
 
 
 def time_bwd(builds) -> None:
     """Both builds' backward entries, bf16 and float32, at the training
-    shape, in turns."""
-    for dtype, (dq, dkv) in BWD_ENTRIES.items():
-        inputs = bwd_inputs(*BWD_SHAPES[0], dtype)
-        for dq_entry in (True, False):
-            times = in_turns(builds, "flash_attention_bwd",
-                             lambda lib: run_bwd(lib, inputs, dq_entry))
-            print(json.dumps({
-                "kernel": dq if dq_entry else dkv, "shape": BWD_SHAPES[0], "ms_in_turns": times,
-            }), flush=True)
+    shape on chip_smoke.py's check mask, 5b's documents and full rows, in
+    turns."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as smoke
+    from lean_explore_tpu_torch.ops import flash_attention as FA
+
+    workloads = smoke.workload_flash_masks("cuda")
+    b, t, nq, nkv, dh = BWD_SHAPES[0]
+    masks = (
+        ("training", smoke.training_flash_mask(b, t, 70, "cuda")),
+        ("training, 5b's documents", workloads["train_5b"]),
+        ("training, full rows", workloads["train_full"]),
+    )
+    for label, seg in masks:
+        for dtype, (dq, dkv) in BWD_ENTRIES.items():
+            q, k, v, _, _, _, _ = bwd_inputs(b, t, nq, nkv, dh, dtype)
+            out, lse = FA.attention_flash_plain(q, k, v, seg, dh**-0.5, with_lse=True)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            dout = (torch.randn(out.shape, generator=gen, device="cuda") * seg[..., None]).to(dtype)
+            inputs = (q, k, v, seg, dout, lse, FA.row_dot(out, dout, nq))
+            for dq_entry in (True, False):
+                times = in_turns(builds, "flash_attention_bwd",
+                                 lambda lib: run_bwd(lib, inputs, dq_entry))
+                print(json.dumps({
+                    "kernel": dq if dq_entry else dkv, "shape": label, "batch": b, "seq": t,
+                    "ms_in_turns": times,
+                }), flush=True)
+            del inputs, q, k, v, out, lse, dout
 
 
 def main() -> int:

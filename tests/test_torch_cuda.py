@@ -559,25 +559,36 @@ def test_flash_forward_f32_keeps_the_lo_terms_of_its_products(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
-    "b,t,nq,nkv,dh,lengths",
+    "b,t,nq,nkv,dh,lengths,left_pad",
     [
-        (4, 256, 4, 2, 128, [1, 63, 200, 256]),
-        (3, 128, 4, 4, 64, [128, 100, 1]),
-        (2, 192, 6, 2, 64, [192, 130]),
-        (2, 192, 4, 4, 128, [1, 192]),
-        (2, 384, 8, 2, 128, [250, 384]),
-        (2, 384, 4, 1, 64, [1, 300]),
+        (4, 256, 4, 2, 128, [1, 63, 200, 256], 66),
+        (3, 128, 4, 4, 64, [128, 100, 1], 66),
+        (2, 192, 6, 2, 64, [192, 130], 66),
+        (2, 192, 4, 4, 128, [1, 192], 66),
+        (2, 384, 8, 2, 128, [250, 384], 66),
+        (2, 384, 4, 1, 64, [1, 300], 66),
+        (2, 256, 16, 8, 128, [256, 256], None),  # full rows: nothing skipped by segment
+        (4, 256, 16, 8, 128, [201, 250, 224, 237], None),  # 5b's documents: 201-250 of 256
+        (3, 256, 8, 4, 128, [100, 171, 40], None),  # valid parts end inside 64-row groups
+        (2, 320, 8, 2, 128, [320, 290], 66),  # T % 128 == 64: the last block half empty
     ],
 )
-def test_flash_backward_matches_plain(cuda, b, t, nq, nkv, dh, lengths, dtype):
+def test_flash_backward_matches_plain(cuda, b, t, nq, nkv, dh, lengths, left_pad, dtype):
     """dq and dk/dv kernels against ``attention_flash_bwd_plain`` on the same
-    residuals, within ``bwd_kernel_tolerance`` (derived there), with a
-    right-padded, a left-padded and a one-token row and dO zero on pad
-    rows: every gradient finite, one launch each. The float32 kernels work
-    on blocks of 128 rows: T = 192 ends in a half block, T = 384 has three
-    blocks, and the cases hold DH 64 and 128 and groups of 1 to 4."""
+    residuals, within ``bwd_kernel_tolerance`` (derived there), with
+    right-padded, left-padded (``left_pad``: the last row's first valid
+    token) and one-token rows and dO zero on pad rows: every gradient
+    finite, one launch each. The bf16 kernels work in groups of 64 fixed
+    rows (a warpgroup, which skips streamed tiles as one; dq two to a
+    block of 128), the float32 ones in blocks of 128 rows: T = 192 and
+    T = 320 end in a half block (its upper half without rows), T = 384 has
+    three blocks; valid parts end inside a group and on its edges; full
+    rows and 5b's documents (201-250 valid tokens of 256) are the masks the
+    training paths give; the cases hold DH 64 and 128 and GQA groups of 1
+    to 4."""
     q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, lengths, seed=11 + dh, dtype=dtype)
-    mask = _left_pad(mask, b - 1, 66)
+    if left_pad is not None:
+        mask = _left_pad(mask, b - 1, left_pad)
     scale = dh**-0.5
     out, lse = FA.attention_flash(q, k, v, mask, scale, with_lse=True)
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -600,19 +611,22 @@ def test_flash_backward_matches_plain(cuda, b, t, nq, nkv, dh, lengths, dtype):
         assert err <= tol, (name, err, tol)
 
 
-def test_flash_backward_f32_is_the_same_in_every_repeated_launch(cuda):
-    """The float32 dq and dk/dv kernels sum in a fixed order (no atomics),
-    so 50 launches on the same inputs give the first launch's bits, each of
-    them: a check of one launch could miss a fault that shows in 1 launch
-    of 30."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_f32_is_the_same_in_every_repeated_launch(cuda, dtype):
+    """The dq and dk/dv kernels, bf16 and float32, sum in a fixed order (no
+    atomics; the streamed tiles are refilled only behind barriers), so 50
+    launches on the same inputs give the first launch's bits, each of them:
+    a check of one launch could miss a fault of a ring that shows in 1
+    launch of 30."""
     b, t, nq, nkv, dh = 4, 256, 16, 8, 128
     q, k, v, mask = _flash_inputs(cuda, b, t, nq, nkv, dh, [256, 1, 130, 200], seed=13,
-                                  dtype=torch.float32)
+                                  dtype=dtype)
     mask = _left_pad(mask, b - 1, 66)
     scale = dh**-0.5
     out, lse = FA.attention_flash(q, k, v, mask, scale, with_lse=True)
     gen = torch.Generator(device=cuda).manual_seed(4)
-    dout = (torch.randn(out.shape, generator=gen, device=cuda) * mask[..., None]).contiguous()
+    dout = torch.randn(out.shape, generator=gen, device=cuda) * mask[..., None]
+    dout = dout.to(dtype).contiguous()
     di = FA.row_dot(out, dout, nq)
     args = (q, k, v, mask, dout, lse, di, scale)
     first = (FA.attention_flash_bwd_dq(*args), *FA.attention_flash_bwd_dkv(*args))
