@@ -10,7 +10,9 @@ Phases, each announced before it starts and timed after it ends:
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and time both beside the card's bound
    and one PyTorch library call for the same function: bin_topk over a
-   bf16 and a float32 corpus, bin_topk_pipelined over the same inputs
+   bf16 and a float32 corpus (the float32 kernels, 3xTF32 on wgmma, also
+   logged beside the floor of their three products at the TF32 peak),
+   bin_topk_pipelined over the same inputs
    (its carry equal to bin_topk's kernel carry bit for bit, for 2, 3 and 4
    ring stages, and timed beside it), bin_topk_int8, windowed_scores over a bf16
    and a float32 corpus, and flash_attention over bf16 and float32 inputs
@@ -121,6 +123,13 @@ def bound_ms(
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tf32_floor(flops: float) -> str:
+    """The log's note of a float32 retrieval kernel's 3xTF32 floor: its
+    three tf32 products of `flops` operations each at the TF32 peak (the
+    bound counts the operations once)."""
+    return f", 3xTF32 floor {3 * flops / TF32_FLOP_PER_S * 1e3:.4f} ms at the TF32 peak"
 
 
 # ----------------------------------------------------------------------
@@ -254,14 +263,17 @@ def check_bin_topk(device, dtype=torch.bfloat16) -> dict:
     )
     size = corpus.element_size()
     bytes_moved = n_real * dim * size + batch * dim * size + bins * batch * 4
-    # One counted launch is one wrapper call: the carry kernel over
-    # `groups` slices of the super-tiles, then, when groups > 1, a max over
-    # the groups' partial carries (groups * bins * B f32 read once).
-    groups = K.supertile_groups(device, n_pad, batch, bins)
-    product = "F32Product" if f32 else "Bf16Product"
-    per_launch = [f"bin_carry_kernel<{product}>"] + (
-        ["max_over_groups_kernel"] if groups > 1 else []
-    )
+    # One counted launch is one wrapper call: for float32 the queries' split
+    # into tf32 halves, then the carry kernel over `groups` slices of the
+    # super-tiles, then, when groups > 1, a max over the groups' partial
+    # carries (groups * bins * B f32 read once).
+    if f32:
+        groups = K.tf32_supertile_groups(device, n_pad, batch, bins)
+        per_launch = ["split_tf32_kernel", "bin_carry_tf32_kernel"]
+    else:
+        groups = K.supertile_groups(device, n_pad, batch, bins)
+        per_launch = ["bin_carry_kernel<Bf16Product>"]
+    per_launch += ["max_over_groups_kernel"] if groups > 1 else []
     # Operations once, at the card's fastest rate for the input type (TF32
     # for float32 inputs; the 3xTF32 product itself runs three times as
     # many).
@@ -272,8 +284,9 @@ def check_bin_topk(device, dtype=torch.bfloat16) -> dict:
         f"  {name} carry kernel {ms:.4f} ms (with top-k epilogue "
         f"{with_epilogue_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"library torch.topk(q @ corpus.T) {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms by {b_by} ({bytes_moved / 1e6:.1f} MB); one "
-        f"launch runs {per_launch} with groups={groups}"
+        f"bound {b_ms:.4f} ms by {b_by} ({bytes_moved / 1e6:.1f} MB)"
+        f"{tf32_floor(flops) if f32 else ''}; one launch runs {per_launch} with "
+        f"groups={groups}"
     )
     return {
         "name": name,
@@ -723,11 +736,16 @@ def check_windowed(device, dtype=torch.bfloat16) -> dict:
     )
     flops = 2.0 * n_pad * batch * dim
     b_ms, b_by = bound_ms(bytes_moved, flops, TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    # One counted launch is one wrapper call: for float32 the queries' split
+    # into tf32 halves, then the kernel.
+    per_launch = (["split_tf32_kernel", "windowed_scores_tf32_kernel"] if f32
+                  else ["windowed_scores_kernel"])
     log(
         f"  {name} kernel {ms:.4f} ms (with the k=1000 selection "
         f"{with_epilogue_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
         f"q @ corpus.T + window amax {library_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"by {b_by} ({bytes_moved / 1e6:.1f} MB)"
+        f"by {b_by} ({bytes_moved / 1e6:.1f} MB){tf32_floor(flops) if f32 else ''}; "
+        f"one launch runs {per_launch}"
     )
     return {
         "name": name,
@@ -735,6 +753,7 @@ def check_windowed(device, dtype=torch.bfloat16) -> dict:
         "source": "lean_explore_tpu_torch/csrc/windowed_scores.cu",
         "replaces": "lean_explore_tpu/ops/pallas_retrieval.py:60",
         "launches": None,
+        "kernels_per_launch": per_launch,
         "max_abs_err": err,
         "ms": ms,
         "with_epilogue_ms": with_epilogue_ms,

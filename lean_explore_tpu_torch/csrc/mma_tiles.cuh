@@ -1,6 +1,8 @@
 // Building blocks shared by the port's tiled-product kernels (bin_topk.cu,
 // bin_topk_int8.cu, bin_topk_pipelined.cu, windowed_scores.cu and, through
-// flash_tiles.cuh, the flash-attention kernels).
+// flash_tiles.cuh, the flash-attention kernels). The float32 kernels of
+// bin_topk.cu and windowed_scores.cu run on wgmma (tf32_tiles.cuh) and take
+// only F32Product's split from here.
 //
 // Each block computes 64 x 64 tiles of (corpus rows) x (queries) with four
 // warps of 32 x 32. Both operands are row-major with the depth contiguous
@@ -18,7 +20,8 @@
 // The bin-max carry kernel (the port of the TPU's `_bin_topk_kernel` and
 // `_bin_topk_kernel_int8`, lean_explore_tpu/ops/pallas_retrieval.py:214 and
 // :260) is defined here once as a template over the product type, so the
-// bf16, f32 and int8 versions share their tiling and their packing.
+// bf16 and int8 versions share their tiling and their packing (and K4's
+// ring-fed kernel, in bf16 and f32, its products and its fold).
 
 #pragma once
 

@@ -11,10 +11,13 @@ never exists.
 
 On a CUDA tensor ``bin_topk_carry`` launches the hand-written kernel in
 ``csrc/bin_topk.cu`` (design and bound in its header note): the bf16
-product for a bf16 corpus, the 3xTF32 one for a float32 corpus (the TPU
-kernel's f32 at HIGHEST precision). On a CPU tensor it runs
-``bin_topk_carry_plain``, the same arithmetic in torch ops. There is no
-fallback from one to the other.
+product on ``mma.sync`` for a bf16 corpus; for a float32 corpus (the TPU
+kernel's f32 at HIGHEST precision) 3xTF32 on ``wgmma`` fed by a TMA ring
+(``csrc/tf32_tiles.cuh``), each corpus value split into tf32 hi and lo
+once and the queries once a launch into scratch this wrapper allocates
+(0.68 ms at the serving shape on an H100 SXM at 700 W, PERF.md).
+On a CPU tensor it runs ``bin_topk_carry_plain``, the same arithmetic in
+torch ops. There is no fallback from one to the other.
 
 Differences from the TPU version:
 
@@ -39,6 +42,10 @@ PACK_FLOOR = 1e-30
 # or 32 f32 values.
 ROW_MULTIPLE = 64
 STAGE_BYTES = 128
+# The float32 kernels' blocks (csrc/tf32_tiles.cuh TF32_ROWS, TF32_QUERIES):
+# 128 corpus rows (two warpgroups of 64) x 128 queries.
+TF32_ROWS = 128
+TF32_QUERIES = 128
 
 # The float dtypes the carry kernel takes, with the entry point of each.
 KERNEL_ENTRIES = {torch.bfloat16: "bin_topk_carry", torch.float32: "bin_topk_carry_f32"}
@@ -123,9 +130,10 @@ def score_tolerance(dtype: torch.dtype, dim: int) -> float:
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    for entry in KERNEL_ENTRIES.values():
+    for dtype, entry in KERNEL_ENTRIES.items():
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        pointers = 5 if dtype == torch.float32 else 4  # the f32 entry takes q_split
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
 
@@ -135,6 +143,20 @@ def supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     blocks = (bins // ROW_MULTIPLE) * -(-batch // 64)
     return max(1, min(-(-n // bins), -(-4 * sms // blocks)))
+
+
+def tf32_supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
+    """Groups the float32 carry kernel splits the super-tiles of [n] rows
+    over: its blocks of (128 bins x 128 queries) take one SM each, so at
+    most one wave of them."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = -(-bins // TF32_ROWS) * -(-batch // TF32_QUERIES)
+    return max(1, min(-(-n // bins), sms // blocks))
+
+
+def split_scratch(queries: torch.Tensor) -> torch.Tensor:
+    """[2, B, D] f32 for the float32 kernels' tf32 halves of the queries."""
+    return torch.empty((2, *queries.shape), dtype=torch.float32, device=queries.device)
 
 
 def check_carry_inputs(
@@ -178,11 +200,13 @@ def check_carry_inputs(
 
 
 def carry_buffers(
-    corpus: torch.Tensor, batch: int, bins: int
+    corpus: torch.Tensor, batch: int, bins: int, groups: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor | None, int]:
-    """(out [bins, B], partial [groups, bins, B] or None, groups)."""
+    """(out [bins, B], partial [groups, bins, B] or None, groups); groups
+    from ``supertile_groups`` unless given."""
     device = corpus.device
-    groups = supertile_groups(device, corpus.shape[0], batch, bins)
+    if groups is None:
+        groups = supertile_groups(device, corpus.shape[0], batch, bins)
     out = torch.empty(bins, batch, dtype=torch.float32, device=device)
     partial = (
         torch.empty(groups, bins, batch, dtype=torch.float32, device=device)
@@ -202,8 +226,8 @@ def bin_topk_carry(
     dtype, bf16 or float32, both contiguous, with N and bins multiples of
     64 and D a multiple of 64 (bf16) or 32 (f32); anything else raises.
     ``bin_topk_carry.launches`` counts calls that launch: each runs the carry
-    kernel and, when the super-tiles are split over groups, the max over the
-    groups' partial carries.
+    kernel (for float32 after the queries' split) and, when the super-tiles
+    are split over groups, the max over the groups' partial carries.
     """
     n, dim = corpus.shape
     steal_bits = steal_bits_for(n, bins)
@@ -220,11 +244,16 @@ def bin_topk_carry(
     batch = queries.shape[0]
     lib = load_library("bin_topk")
     _configure(lib)
-    out, partial, groups = carry_buffers(corpus, batch, bins)
+    f32 = dtype == torch.float32
+    groups = tf32_supertile_groups(corpus.device, n, batch, bins) if f32 else None
+    out, partial, groups = carry_buffers(corpus, batch, bins, groups)
+    scratch = split_scratch(queries) if f32 else None
+    split = [] if scratch is None else [scratch.data_ptr()]
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream(corpus.device).cuda_stream
         status = getattr(lib, KERNEL_ENTRIES[dtype])(
             queries.data_ptr(),
+            *split,
             corpus.data_ptr(),
             out.data_ptr(),
             partial.data_ptr() if partial is not None else None,

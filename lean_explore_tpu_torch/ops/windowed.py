@@ -12,18 +12,22 @@ than k scores exceed x, so fewer than k windows have a maximum above x's
 window, and x's window is among the top k.
 
 On a CUDA tensor ``fused_scores_wmax`` launches the hand-written kernel in
-``csrc/windowed_scores.cu``: the bf16 product for a bf16 corpus, the
-3xTF32 one for a float32 corpus (the TPU kernel's f32 at HIGHEST
-precision); on CPU tensors it runs ``fused_scores_wmax_plain``. There is
-no fallback from one to the other. Unlike the TPU version the query
-batch is not padded to a multiple of 8.
+``csrc/windowed_scores.cu``: the bf16 product on ``mma.sync`` for a bf16
+corpus; for a float32 corpus (the TPU kernel's f32 at HIGHEST precision)
+3xTF32 on ``wgmma`` fed by a TMA ring (``csrc/tf32_tiles.cuh``), a
+persistent grid over 128-row tiles, each corpus value split into tf32 hi
+and lo once and the queries once a launch into scratch this wrapper
+allocates (0.66-0.68 ms at the serving shape on an H100 SXM at 700 W,
+PERF.md). On CPU tensors it runs ``fused_scores_wmax_plain``. There is no
+fallback from one to the other. Unlike the TPU version the query batch is
+not padded to a multiple of 8.
 """
 
 import ctypes
 
 import torch
 
-from lean_explore_tpu_torch.ops.bin_topk import ROW_MULTIPLE, depth_multiple
+from lean_explore_tpu_torch.ops.bin_topk import ROW_MULTIPLE, depth_multiple, split_scratch
 from lean_explore_tpu_torch.ops.cuda_build import load_library
 
 # The corpus dtypes the kernel takes, with the entry point of each.
@@ -48,9 +52,10 @@ def fused_scores_wmax_plain(
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    for entry in KERNEL_ENTRIES.values():
+    for dtype, entry in KERNEL_ENTRIES.items():
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        pointers = 5 if dtype == torch.float32 else 4  # the f32 entry takes q_split
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
 
@@ -65,7 +70,7 @@ def fused_scores_wmax(
     (bf16) or 32 (f32) and 64 % window == 0 (the tiles of bin_topk,
     csrc/mma_tiles.cuh: a window lies inside one 64-row tile); anything
     else raises. ``fused_scores_wmax.launches`` counts
-    launches.
+    launches (for float32 each runs the queries' split, then the kernel).
     """
     if corpus.device.type == "cpu" and queries.device.type == "cpu":
         return fused_scores_wmax_plain(queries, corpus, n_valid, window)
@@ -98,10 +103,13 @@ def fused_scores_wmax(
     _configure(lib)
     scores_t = torch.empty(n, batch, dtype=torch.float32, device=corpus.device)
     wmax_t = torch.empty(n // window, batch, dtype=torch.float32, device=corpus.device)
+    scratch = split_scratch(q) if dtype == torch.float32 else None
+    split = [] if scratch is None else [scratch.data_ptr()]
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream(corpus.device).cuda_stream
         status = getattr(lib, KERNEL_ENTRIES[dtype])(
             q.data_ptr(),
+            *split,
             corpus.data_ptr(),
             scores_t.data_ptr(),
             wmax_t.data_ptr(),

@@ -1,21 +1,31 @@
 """Do the port's retrieval kernels and its flash-attention float32 backward
 give the same bits as another tree's build of them, and are both builds'
-flash-attention forwards and bf16 backward right and how fast? On one GPU.
+float32 retrieval kernels, flash-attention forwards and bf16 backward right
+and how fast? On one GPU.
 
     python3 scripts/compare_torch_kernel_builds.py --other unpacked/parent
 
 Builds ``csrc/bin_topk.cu``, ``csrc/bin_topk_int8.cu``,
-``csrc/windowed_scores.cu``, ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu`` of this tree and of the
-tree at ``--other`` (for example the parent commit, unpacked with
-``git archive`` into a directory that .gitignore lists) with the port's
-nvcc flags, each into its own directory under ``build/compare_builds/``,
-loads both with ctypes and calls entry points whose C interface is the same
-in both on the same inputs: ``bin_topk_carry`` (bf16), ``bin_topk_carry_f32``
-(the same corpus in float32), ``bin_topk_int8_carry`` (the same corpus and
-queries quantized per row) and ``windowed_scores`` (bf16) at the serving
-shape (300,000 valid rows of a 300,032 x 1024 unit-row corpus, B = 128,
-bins = 4096, window 8) and two small shapes, and the backward's float32
+``csrc/bin_topk_pipelined.cu``, ``csrc/windowed_scores.cu``,
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` of this
+tree and of the tree at ``--other`` (for example the parent commit,
+unpacked with ``git archive`` into a directory that .gitignore lists) with
+the port's nvcc flags, each into its own directory under
+``build/compare_builds/``, loads both with ctypes and calls their entry
+points on the same inputs: ``bin_topk_carry`` (bf16),
+``bin_topk_int8_carry`` (the same corpus and queries quantized per row),
+``bin_topk_pipelined_carry`` and ``bin_topk_pipelined_carry_f32`` (K4 at 3
+ring stages, bf16 and the same corpus in float32) and ``windowed_scores``
+(bf16) at the serving shape (300,000 valid rows of a 300,032 x 1024
+unit-row corpus, B = 128, bins = 4096, window 8) and two small shapes,
+compared bit for bit; ``bin_topk_carry_f32`` and ``windowed_scores_f32``
+(float32: 3xTF32 on mma.sync in older trees, on wgmma with a ``q_split``
+scratch argument in newer ones, each tree's C interface read from its
+source),
+held in each build against their plain twins (``bin_topk_carry_plain``
+within two packing quanta plus ``score_tolerance``,
+``fused_scores_wmax_plain`` within ``score_tolerance``), their bit
+identity printed beside; and the backward's float32
 entries ``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32``
 at the training shape (B = 32, T = 256, 16/8 heads, DH 128, ragged and
 left-padded rows, dO zero on pad rows) and a small DH 64 shape; it prints,
@@ -29,7 +39,8 @@ within ``ops.flash_attention.kernel_tolerance`` at the serving shape (B =
 64, T = 512, 16/8 heads, DH 128, ragged lengths) and a small DH 64 shape,
 the backward's dq, dk and dv against ``attention_flash_bwd_plain`` within
 ``bwd_kernel_tolerance`` at the backward's two shapes. Then the CUDA-event
-mean of 20 launches of each build's forwards at chip_smoke.py's serving
+mean of 20 launches of each build's float32 retrieval entries at the
+serving shape, and of its forwards at chip_smoke.py's serving
 shape (B 64 x T 512, its ragged and left-padded mask, then phase 4d's
 embed batch's mask) and training shape (B 32 x T 256, the backward check's
 mask, then 5b's documents' mask and full rows), and of the backward
@@ -53,8 +64,13 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 KERNELS = (
-    "bin_topk", "bin_topk_int8", "windowed_scores", "flash_attention", "flash_attention_bwd",
+    "bin_topk", "bin_topk_int8", "bin_topk_pipelined", "windowed_scores", "flash_attention",
+    "flash_attention_bwd",
 )
+# Entries whose output is held against the plain twin in each build, not
+# compared bit for bit between builds.
+TWIN_HELD = ("bin_topk_f32", "windowed_scores_f32")
+K4_BUFFERS = 3
 # (batch, seq, nq, nkv, dh) of the flash-attention forward
 FLASH_SHAPES = ((64, 512, 16, 8, 128), (3, 256, 4, 2, 64))
 # (batch, seq, nq, nkv, dh) of the flash backward: the training shape first
@@ -116,11 +132,27 @@ def build(csrc: Path, out_dir: Path) -> dict[str, tuple[ctypes.CDLL, list[str]]]
     return built
 
 
-def _configure(kernel: str, lib: ctypes.CDLL) -> None:
+def takes_split(csrc: Path) -> bool:
+    """Whether a tree's float32 retrieval entries take the ``q_split``
+    scratch (the wgmma kernels), read from its source."""
+    return "void* q_split" in (csrc / "bin_topk.cu").read_text()
+
+
+def _configure(kernel: str, lib: ctypes.CDLL, split: bool = True) -> None:
+    """Sets the argument types of a library's entries; ``split`` says
+    whether its float32 retrieval entries take the ``q_split`` scratch, and
+    is kept on the library as ``f32_takes_split``."""
+    lib.f32_takes_split = split
+    extra = [ctypes.c_void_p] if split else []
     if kernel == "bin_topk":
         fns = [lib.bin_topk_carry, lib.bin_topk_carry_f32]
+        lib.bin_topk_carry.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.bin_topk_carry_f32.argtypes = (
+            [ctypes.c_void_p] * 4 + extra + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    elif kernel == "bin_topk_pipelined":
+        fns = [lib.bin_topk_pipelined_carry, lib.bin_topk_pipelined_carry_f32]
         for fn in fns:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     elif kernel == "bin_topk_int8":
         fns = [lib.bin_topk_int8_carry]
         fns[0].argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -132,8 +164,10 @@ def _configure(kernel: str, lib: ctypes.CDLL) -> None:
             getattr(lib, dkv).argtypes = [ctypes.c_void_p] * 9 + tail
             fns += [getattr(lib, dq), getattr(lib, dkv)]
     elif kernel == "windowed_scores":
-        fns = [lib.windowed_scores]
-        fns[0].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fns = [lib.windowed_scores, lib.windowed_scores_f32]
+        lib.windowed_scores.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.windowed_scores_f32.argtypes = (
+            [ctypes.c_void_p] * 4 + extra + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     else:
         fns = [lib.flash_attention_fwd, lib.flash_attention_fwd_f32]
         for fn in fns:
@@ -144,23 +178,58 @@ def _configure(kernel: str, lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
+def split_args(lib, q) -> list:
+    """[q_split pointer] for a library whose float32 entries take the
+    scratch (kept alive on the library until its next call), else []."""
+    from lean_explore_tpu_torch.ops.bin_topk import split_scratch
+
+    if not lib.f32_takes_split:
+        return []
+    lib.last_split = split_scratch(q)
+    return [lib.last_split.data_ptr()]
+
+
 def run_bin_topk(lib, q, corpus, n_valid, bins) -> torch.Tensor:
     from lean_explore_tpu_torch.ops.bin_topk import (
         carry_buffers,
         steal_bits_for,
+        tf32_supertile_groups,
     )
 
     n, dim = corpus.shape
-    out, partial, groups = carry_buffers(corpus, q.shape[0], bins)
+    f32 = corpus.dtype == torch.float32
+    groups = None
+    if f32 and lib.f32_takes_split:
+        groups = tf32_supertile_groups(corpus.device, n, q.shape[0], bins)
+    out, partial, groups = carry_buffers(corpus, q.shape[0], bins, groups)
     stream = torch.cuda.current_stream().cuda_stream
-    fn = lib.bin_topk_carry if corpus.dtype == torch.bfloat16 else lib.bin_topk_carry_f32
+    fn = lib.bin_topk_carry_f32 if f32 else lib.bin_topk_carry
     status = fn(
-        q.data_ptr(), corpus.data_ptr(), out.data_ptr(),
+        q.data_ptr(), *(split_args(lib, q) if f32 else []), corpus.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None, q.shape[0], n, dim,
         n_valid, bins, steal_bits_for(n, bins), groups, stream,
     )
     if status != 0:
         raise RuntimeError(f"bin_topk_carry: cudaError {status}")
+    return out
+
+
+def run_pipelined(lib, q, corpus, n_valid, bins) -> torch.Tensor:
+    """K4's carry at K4_BUFFERS ring stages, with K4's wrapper's groups."""
+    from lean_explore_tpu_torch.ops.bin_topk import carry_buffers, steal_bits_for
+
+    n, dim = corpus.shape
+    out, partial, groups = carry_buffers(corpus, q.shape[0], bins)
+    fn = (lib.bin_topk_pipelined_carry if corpus.dtype == torch.bfloat16
+          else lib.bin_topk_pipelined_carry_f32)
+    status = fn(
+        q.data_ptr(), corpus.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None, q.shape[0], n, dim,
+        n_valid, bins, steal_bits_for(n, bins), groups, K4_BUFFERS,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"bin_topk_pipelined_carry: cudaError {status}")
     return out
 
 
@@ -180,19 +249,44 @@ def run_bin_topk_int8(lib, q_codes, q_scales, codes, scales, n_valid, bins) -> t
     return out
 
 
-def run_windowed(lib, q, corpus, n_valid, window) -> torch.Tensor:
+def run_windowed(lib, q, corpus, n_valid, window, joined: bool = True):
+    """(scores_t, wmax_t) of one launch, joined into one flat tensor unless
+    ``joined`` is False."""
     n, dim = corpus.shape
     batch = q.shape[0]
     scores = torch.empty(n, batch, device=corpus.device)
     wmax = torch.empty(n // window, batch, device=corpus.device)
     stream = torch.cuda.current_stream().cuda_stream
-    status = lib.windowed_scores(
-        q.data_ptr(), corpus.data_ptr(), scores.data_ptr(), wmax.data_ptr(), batch,
-        n, dim, n_valid, window, stream,
+    f32 = corpus.dtype == torch.float32
+    fn = lib.windowed_scores_f32 if f32 else lib.windowed_scores
+    status = fn(
+        q.data_ptr(), *(split_args(lib, q) if f32 else []), corpus.data_ptr(),
+        scores.data_ptr(), wmax.data_ptr(), batch, n, dim, n_valid, window, stream,
     )
     if status != 0:
         raise RuntimeError(f"windowed_scores: cudaError {status}")
-    return torch.cat([scores.flatten(), wmax.flatten()])
+    return torch.cat([scores.flatten(), wmax.flatten()]) if joined else (scores, wmax)
+
+
+def twin_error(kernel: str, got, q, corpus, n_valid, bins, window) -> tuple[float, float]:
+    """(error, tolerance) of a float32 retrieval entry's output against its
+    plain twin: the carry within two packing quanta plus score_tolerance,
+    the scores and window maxima within score_tolerance (pad rows -inf in
+    both)."""
+    from lean_explore_tpu_torch.ops import bin_topk as K
+    from lean_explore_tpu_torch.ops import windowed as W
+
+    n, dim = corpus.shape
+    tol = K.score_tolerance(torch.float32, dim)
+    if kernel == "bin_topk_f32":
+        steal = K.steal_bits_for(n, bins)
+        want = K.bin_topk_carry_plain(q, corpus, n_valid, bins, steal)
+        return float((got - want).abs().max()), 2.0 * 2.0 ** (steal - 22) + tol
+    want = torch.cat([x.flatten() for x in W.fused_scores_wmax_plain(q, corpus, n_valid, window)])
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        return float("inf"), tol
+    finite = torch.isfinite(want)
+    return float((got[finite] - want[finite]).abs().max()), tol
 
 
 def run_flash(lib, q, k, v, mask) -> torch.Tensor:
@@ -259,6 +353,29 @@ def in_turns(builds, kernel: str, run, reps: int = 20) -> list:
         torch.cuda.synchronize()
         times.append((tag, start.elapsed_time(end) / reps))
     return times
+
+
+def time_retrieval_f32(builds) -> None:
+    """Both builds' float32 retrieval entries at the serving shape (the
+    first of SHAPES, in float32), in turns."""
+    n, n_valid, dim, batch, bins, window = SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(n + batch)
+    corpus = torch.randn(n, dim, generator=gen, device="cuda")
+    corpus = corpus / corpus.norm(dim=1, keepdim=True)
+    corpus[n_valid:] = 0
+    q = torch.randn(batch, dim, generator=gen, device="cuda")
+    q = q / q.norm(dim=1, keepdim=True)
+    for kernel, source, run in (
+        ("bin_topk_f32", "bin_topk", lambda lib: run_bin_topk(lib, q, corpus, n_valid, bins)),
+        ("windowed_scores_f32", "windowed_scores",
+         lambda lib: run_windowed(lib, q, corpus, n_valid, window, joined=False)),
+    ):
+        print(json.dumps({
+            "kernel": kernel, "shape": "serving", "rows": n, "n_valid": n_valid, "dim": dim,
+            "batch": batch, "bins": bins, "window": window,
+            "ms_in_turns": in_turns(builds, source, run),
+        }), flush=True)
+    del corpus, q
 
 
 def time_forward(builds) -> None:
@@ -410,16 +527,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("compare_torch_kernel_builds: needs a CUDA device", file=sys.stderr)
         return 2
-    other = Path(args.other).resolve()
-    builds = {
-        "this": build(REPO / "lean_explore_tpu_torch" / "csrc",
-                      REPO / "build" / "compare_builds" / "this"),
-        "other": build(other / "lean_explore_tpu_torch" / "csrc",
-                       REPO / "build" / "compare_builds" / "other"),
-    }
-    for libs in builds.values():
+    trees = {"this": REPO / "lean_explore_tpu_torch" / "csrc",
+             "other": Path(args.other).resolve() / "lean_explore_tpu_torch" / "csrc"}
+    builds = {tag: build(csrc, REPO / "build" / "compare_builds" / tag)
+              for tag, csrc in trees.items()}
+    for tag, libs in builds.items():
         for kernel, (lib, _) in libs.items():
-            _configure(kernel, lib)
+            _configure(kernel, lib, takes_split(trees[tag]))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -435,36 +549,50 @@ def main() -> int:
         corpus[n_valid:] = 0
         q = torch.randn(batch, dim, generator=gen, device="cuda")
         q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        q8, q8_scales = quantize_rows_device(q.float())
-        c8, c8_scales = quantize_rows_device(corpus.float())
+        qf, cf = q.float(), corpus.float()
+        q8, q8_scales = quantize_rows_device(qf)
+        c8, c8_scales = quantize_rows_device(cf)
         runs = {
             "bin_topk": lambda lib: run_bin_topk(lib, q, corpus, n_valid, bins),
-            "bin_topk_f32": lambda lib: run_bin_topk(
-                lib, q.float(), corpus.float(), n_valid, bins
-            ),
+            "bin_topk_f32": lambda lib: run_bin_topk(lib, qf, cf, n_valid, bins),
             "bin_topk_int8": lambda lib: run_bin_topk_int8(
                 lib, q8, q8_scales, c8, c8_scales, n_valid, bins
             ),
+            "bin_topk_pipelined": lambda lib: run_pipelined(lib, q, corpus, n_valid, bins),
+            "bin_topk_pipelined_f32": lambda lib: run_pipelined(lib, qf, cf, n_valid, bins),
             "windowed_scores": lambda lib: run_windowed(lib, q, corpus, n_valid, window),
+            "windowed_scores_f32": lambda lib: run_windowed(lib, qf, cf, n_valid, window),
         }
         for kernel, run in runs.items():
-            source = "bin_topk" if kernel == "bin_topk_f32" else kernel
+            source = kernel.removesuffix("_f32")
             outs = {tag: run(libs[source][0]) for tag, libs in builds.items()}
             torch.cuda.synchronize()
             same = torch.equal(
                 outs["this"].view(torch.int32), outs["other"].view(torch.int32)
             )
-            ok &= same
-            results.append({
+            row = {
                 "kernel": kernel, "rows": n, "n_valid": n_valid, "dim": dim,
                 "batch": batch, "bins": bins, "window": window,
                 "bit_identical": same,
-            })
+            }
+            if kernel in TWIN_HELD:
+                errs = {tag: twin_error(kernel, out, qf, cf, n_valid, bins, window)
+                        for tag, out in outs.items()}
+                right = all(err <= tol for err, tol in errs.values())
+                row.update({"max_abs_err": {tag: e for tag, (e, _) in errs.items()},
+                            "tol": errs["this"][1], "within_tolerance": right})
+            else:
+                right = same
+            ok &= right
+            results.append(row)
             print(json.dumps(results[-1]), flush=True)
+            del outs
+        del qf, cf, q8, c8
     for compare in (compare_flash, compare_bwd):
         more, more_ok = compare(builds)
         results += more
         ok &= more_ok
+    time_retrieval_f32(builds)
     time_forward(builds)
     time_bwd(builds)
     for tag, libs in builds.items():

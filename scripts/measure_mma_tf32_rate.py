@@ -1,8 +1,9 @@
 """How many tf32 mma.sync m16n8k8 (SASS HMMA.1688.F32.TF32) and bf16
 mma.sync m16n8k16 (HMMA.16816.F32.BF16) can one SM of this GPU issue a
-second, and how many bf16 wgmma of the two shapes the bf16 backward runs?
-The ceilings of the port's flash-attention kernels, which are built on
-those instructions. On one GPU.
+second, how many bf16 wgmma of the two shapes the bf16 backward runs, and
+how many tf32 wgmma m64n128k8 of the float32 retrieval kernels? The
+ceilings of the port's flash-attention and float32 retrieval kernels,
+which are built on those instructions. On one GPU.
 
     python3 scripts/measure_mma_tf32_rate.py [--count-only]
 
@@ -19,8 +20,11 @@ not skip under the kernels' causal and segment rule times their two
 products, and the share of full rows' tiles that the segment rule skips;
 and the bf16 backward at the training shape on its check mask, 5b's
 documents and full rows (``bf16_backward_counts``: HMMA.16816 for warps of
-16 rows on mma.sync, wgmma for warpgroups of 64). With ``--count-only`` it
-stops there and needs no GPU. Then it writes a small CUDA source into
+16 rows on mma.sync, wgmma for warpgroups of 64); and the tf32 wgmma
+m64n128k8 of K1-f32 and K3-f32 (``csrc/bin_topk.cu``,
+``csrc/windowed_scores.cu``) at chip_smoke.py's serving shape
+(``tf32_retrieval_counts``). With ``--count-only`` it stops there and needs
+no GPU. Then it writes a small CUDA source into
 ``build/mma_tf32_rate/``, builds it with the port's nvcc flags against
 ``csrc/flash_tiles.cuh``, and launches 4 blocks an SM, each of 128, 256
 or 512 threads, whose warps each run 2,000 rounds of 4, 8 or 16
@@ -29,12 +33,14 @@ other work), tf32 and then bf16; then 1-2 blocks an SM of 1-3
 warpgroups, each issuing 500 batches of 8 wgmma of one shape on zeroed
 shared-memory operands in the backward's layout (m64n32k16 from shared
 memory, m64n128k16 with A in registers), one batch in flight while the
-next is issued. Prints the card's name and power limit, then per
+next is issued, then the same for tf32 m64n128k8 with A in registers and
+with A from shared memory. Prints the card's name and power limit, then per
 instruction and configuration the CUDA-event time of 5 launches after a
 warm one and the rate in instructions a second per SM, and last a JSON
 line with each instruction's highest rate and the time the counted
 instructions take at it (the bf16 backward's wgmma floor is the sum over
-its two shapes). Exits 2 without a device.
+its two shapes; the float32 retrieval kernels' at the A-in-registers
+rate). Exits 2 without a device.
 """
 
 import argparse
@@ -52,7 +58,7 @@ SOURCE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_tiles.cuh"
+#include "tf32_tiles.cuh"
 
 constexpr int WGMMA_SMEM = 65536;
 
@@ -106,10 +112,12 @@ extern "C" int mma_bf16_rate(float* out, int chains, int blocks, int threads, in
 
 // Each warpgroup issues `rounds` batches of 8 wgmma of one shape on one
 // accumulator, one batch in flight while the next is issued, on zeroed
-// shared-memory operands in the bf16 backward's layout: m64n32k16 with A
+// shared-memory operands: in the bf16 backward's layout, m64n32k16 with A
 // and B from shared memory (RS false) or m64n128k16 with A in registers
-// and B read MN-major (RS true).
-template <bool RS>
+// and B read MN-major (RS true); with TF32, the float32 retrieval kernels'
+// m64n128k8 with B a K-major 128-row tile and A from shared memory or from
+// registers.
+template <bool RS, bool TF32>
 __global__ void wgmma_chains(float* out, int rounds) {
   extern __shared__ __align__(16) uint8_t raw[];
   uint8_t* smem = tiles::align_1024(raw);
@@ -128,7 +136,11 @@ __global__ void wgmma_chains(float* out, int rounds) {
     tiles::wgmma_fence();
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      if constexpr (RS) {
+      if constexpr (TF32 && RS) {
+        tiles::wgmma_tf32_rs(d, af, b + 2 * (i & 3));
+      } else if constexpr (TF32) {
+        tiles::wgmma_tf32_ss(d, a + 2 * (i & 3), b + 2 * (i & 3));
+      } else if constexpr (RS) {
         tiles::wgmma_rs_t<128>(d, af, b_mn + 128 * (i & 1));
       } else {
         tiles::wgmma_ss<32>(*reinterpret_cast<float(*)[16]>(&d), a + 2 * (i & 3), b + 2 * (i & 3));
@@ -145,7 +157,17 @@ __global__ void wgmma_chains(float* out, int rounds) {
 }
 
 extern "C" int wgmma_rate(float* out, int rs, int groups, int blocks, int rounds, void* stream) {
-  auto kernel = rs ? wgmma_chains<true> : wgmma_chains<false>;
+  auto kernel = rs ? wgmma_chains<true, false> : wgmma_chains<false, false>;
+  const int smem = WGMMA_SMEM + 1024;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, 128 * groups, smem, static_cast<cudaStream_t>(stream)>>>(out, rounds);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wgmma_tf32_rate(float* out, int rs, int groups, int blocks, int rounds,
+                               void* stream) {
+  auto kernel = rs ? wgmma_chains<true, true> : wgmma_chains<false, true>;
   const int smem = WGMMA_SMEM + 1024;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -227,6 +249,23 @@ def bf16_backward_counts(mask, nq: int, nkv: int, dh: int) -> dict[str, int]:
             counts.update({"dkv_wgmma_ss": dkv * 2 * (dh // 16), "dkv_wgmma_rs": dkv * 4,
                            "dq_wgmma_ss": dq * 2 * (dh // 16), "dq_wgmma_rs": dq * 2})
     return counts
+
+
+def tf32_retrieval_counts(n: int, dim: int, batch: int, bins: int) -> dict[str, int]:
+    """tf32 wgmma m64n128k8 of the float32 carry (K1-f32) and windowed
+    scores (K3-f32) kernels over a corpus of n rows: each warpgroup's 64
+    rows are multiplied by every block of 128 queries over the depth, three
+    products (3xTF32) a k8 step. K1's warpgroups cover the 64-bin slices of
+    each super-tile that lie inside the corpus, a block's second one past
+    N or past `bins` included (it multiplies, and does not fold); K3's the
+    128-row tiles, a half tile past N included."""
+    q_blocks = -(-batch // 128)
+    per_group = q_blocks * (dim // 8) * 3
+    slices = -(-bins // 128)
+    k1_groups = 0
+    for p in range(-(-n // bins)):
+        k1_groups += 2 * sum(1 for x in range(slices) if p * bins + 128 * x < n)
+    return {"bin_topk_f32": k1_groups * per_group, "windowed_scores_f32": 2 * -(-n // 128) * per_group}
 
 
 def forward_mma_counts(mask, nq: int, dh: int) -> dict[str, int]:
@@ -336,23 +375,29 @@ def best_rate(lib, entry: str, out, blocks: int, sms: int) -> float:
     return best
 
 
-def best_wgmma_rate(lib, rs: bool, sms: int) -> float:
-    """The highest rate per SM of one wgmma shape (m64n128k16 with A in
-    registers when rs, else m64n32k16 from shared memory) over 1-3
-    warpgroups a block and 1-2 blocks an SM, printing each."""
+def best_wgmma_rate(lib, rs: bool, sms: int, tf32: bool = False) -> float:
+    """The highest rate per SM of one wgmma shape (bf16: m64n128k16 with A in
+    registers when rs, else m64n32k16 from shared memory; tf32: m64n128k8,
+    A in registers or shared memory) over 1-3 warpgroups a block and 1-2
+    blocks an SM, printing each."""
     best = 0.0
     rounds = ROUNDS // 4
-    name = "wgmma m64n128k16 (A in registers)" if rs else "wgmma m64n32k16 (A, B in shared memory)"
+    entry = lib.wgmma_tf32_rate if tf32 else lib.wgmma_rate
+    if tf32:
+        name = f"wgmma tf32 m64n128k8 ({'A in registers' if rs else 'A, B in shared memory'})"
+    else:
+        name = ("wgmma m64n128k16 (A in registers)" if rs
+                else "wgmma m64n32k16 (A, B in shared memory)")
     for groups in (1, 2, 3):
         for per_sm in (1, 2):
             blocks = per_sm * sms
             out = torch.empty(blocks * 128 * groups, device="cuda")
 
             def launch():
-                status = lib.wgmma_rate(out.data_ptr(), int(rs), groups, blocks, rounds,
-                                        torch.cuda.current_stream().cuda_stream)
+                status = entry(out.data_ptr(), int(rs), groups, blocks, rounds,
+                               torch.cuda.current_stream().cuda_stream)
                 if status != 0:
-                    raise RuntimeError(f"wgmma_rate: cudaError {status}")
+                    raise RuntimeError(f"{name}: cudaError {status}")
 
             launch()
             torch.cuda.synchronize()
@@ -384,6 +429,12 @@ def main() -> int:
     bwd16 = bf16_backward_counts_on_masks()
     for shape, shape_counts in bwd16.items():
         print(f"bf16 backward, {shape}: {shape_counts}", flush=True)
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as smoke
+
+    retrieval = tf32_retrieval_counts(
+        -(-smoke.BIN_N_REAL // 512) * 512, smoke.BIN_DIM, smoke.BIN_BATCH, smoke.BIN_BINS)
+    print(f"float32 retrieval at the serving shape: {retrieval}", flush=True)
     if args.count_only:
         return 0
     if not torch.cuda.is_available():
@@ -400,10 +451,9 @@ def main() -> int:
     subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(csrc), "-o", str(lib_path), str(src)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
-    for entry in ("mma_tf32_rate", "mma_bf16_rate", "wgmma_rate"):
+    for entry in ("mma_tf32_rate", "mma_bf16_rate", "wgmma_rate", "wgmma_tf32_rate"):
         getattr(lib, entry).argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         getattr(lib, entry).restype = ctypes.c_int
-    lib.wgmma_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -416,6 +466,8 @@ def main() -> int:
     best_bf16 = best_rate(lib, "mma_bf16_rate", out, blocks, sms)
     best_ss = best_wgmma_rate(lib, False, sms)
     best_rs = best_wgmma_rate(lib, True, sms)
+    best_tf32_rs = best_wgmma_rate(lib, True, sms, tf32=True)
+    best_tf32_ss = best_wgmma_rate(lib, False, sms, tf32=True)
 
     def bf16_bwd_floor(kernel: str, n: dict) -> float:
         if kernel.endswith("_hmma"):
@@ -442,6 +494,12 @@ def main() -> int:
                     for kernel in ("dkv_hmma", "dq_hmma", "dkv_wgmma", "dq_wgmma")}
             for shape, n in bwd16.items()
         },
+        "best_wgmma_tf32_m64n128k8_rs_per_sm_per_s": best_tf32_rs,
+        "best_wgmma_tf32_m64n128k8_ss_per_sm_per_s": best_tf32_ss,
+        "wgmma_tf32_rs_flop_per_s": best_tf32_rs * sms * 2 * 64 * 128 * 8,
+        "wgmma_tf32_ss_flop_per_s": best_tf32_ss * sms * 2 * 64 * 128 * 8,
+        "tf32_retrieval_ms_at_best": {k: n / (best_tf32_rs * sms) * 1e3
+                                      for k, n in retrieval.items()},
     }))
     return 0
 

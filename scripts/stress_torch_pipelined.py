@@ -50,7 +50,8 @@ def build_all(out_dir: Path) -> dict[str, ctypes.CDLL]:
     for name in BUILDS:
         d = out_dir / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "mma_tiles.cuh").write_text((CSRC_DIR / "mma_tiles.cuh").read_text())
+        for header in CSRC_DIR.glob("*.cuh"):
+            (d / header.name).write_text(header.read_text())
         (d / "kernel.cu").write_text(source if name == "fenced" else source.replace(FENCE_CALL, ""))
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "kernel.cu")]
         procs[name] = subprocess.Popen(

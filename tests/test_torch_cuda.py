@@ -13,7 +13,9 @@ packing quanta (2^steal_bits ulps of [2, 4), 2^-22 each) (derivation in
 chip_smoke.py). The int8 kernel's products are exact integers and its f32
 steps are rounded as its twin's, so its carry equals the twin's bit for bit.
 The ring-fed carry kernel (K4) runs K1's products in K1's order, so its
-carry equals K1's kernel carry bit for bit.
+carry equals K1's kernel carry bit for bit; for float32 K4 runs them on
+mma.sync m16n8k8 and K1 on wgmma m64n128k8, whose tf32 k8 steps give the
+same bits.
 The float32 kernels (3xTF32) are held to 3 * 2^-22 + 7 * D * 2^-24 (the
 split's error and truncating tensor-core sums; ops.bin_topk.score_tolerance),
 and flash attention on valid rows to ops.flash_attention.kernel_tolerance:
@@ -214,6 +216,11 @@ def test_dense_index_windowed_search_takes_the_kernel(cuda):
         (4096 * 5, 4096 * 5, 1, 4096, 96),  # one query, a depth of 3 f32 stages
         (2048, 1500, 128, 1024, 256),  # fewer super-tiles than groups
         (64 * 9, 64 * 9, 200, 64, 32),  # two query blocks and a partial one
+        (64 * 33, 64 * 33 - 17, 100, 64, 1024),  # one 64-bin slice, the full depth
+        # 192 bins: the second block's second warpgroup lies past the bins,
+        # and the last super-tile's 64 rows end inside the first block
+        (192 * 10 + 64, 192 * 10, 1, 192, 96),
+        (4096 * 2 + 2048 + 64, 4096 * 2 + 2000, 200, 4096, 32),
     ],
 )
 def test_f32_carry_matches_plain(cuda, n, n_valid, batch, bins, dim):
@@ -233,7 +240,13 @@ def test_f32_carry_matches_plain(cuda, n, n_valid, batch, bins, dim):
 
 @pytest.mark.parametrize(
     "n,n_valid,batch,window,dim",
-    [(4096, 4000, 37, 8, 256), (640, 640, 1, 16, 96), (64 * 9, 500, 200, 64, 32)],
+    [
+        (4096, 4000, 37, 8, 256),
+        (640, 640, 1, 16, 96),
+        (64 * 9, 500, 200, 64, 32),  # N / 64 odd: a half tile of 128 rows
+        (64 * 15, 64 * 15 - 3, 100, 1, 1024),  # window 1, the full depth
+        (64 * 7, 64 * 7, 130, 8, 96),  # a second query block of 2, B % 4 != 0
+    ],
 )
 def test_f32_windowed_scores_match_plain(cuda, n, n_valid, batch, window, dim):
     gen = torch.Generator(device=cuda).manual_seed(n + batch + 4)
@@ -263,6 +276,91 @@ def test_f32_dense_index_search_takes_the_kernel(cuda):
     assert K.bin_topk_carry.launches == before + 1
     assert W.fused_scores_wmax.launches == before_w + 1
     assert ids[:, 0].tolist() == [0, 1, 2, 3, 4] == ids_w[:, 0].tolist()
+
+
+def _tf32_build(tmp_path, stages):
+    """bin_topk.cu and windowed_scores.cu built as they are (stages None) or
+    with both float32 rings cut to `stages` stages, each from a copy of csrc/
+    under tmp_path; (carry entry, windowed entry)."""
+    import ctypes
+    import re
+    import shutil
+    import subprocess
+
+    from lean_explore_tpu_torch.ops.cuda_build import CSRC_DIR, NVCC_FLAGS, nvcc_path
+
+    tree = tmp_path / "csrc"
+    shutil.copytree(CSRC_DIR, tree)
+    if stages is not None:
+        for name, constant in (("bin_topk.cu", "CARRY_STAGES"),
+                               ("windowed_scores.cu", "WINDOW_STAGES")):
+            source, found = re.subn(rf"constexpr int {constant} = \d+;",
+                                    f"constexpr int {constant} = {stages};",
+                                    (tree / name).read_text())
+            assert found == 1
+            (tree / name).write_text(source)
+    libs = {}
+    for name in ("bin_topk", "windowed_scores"):
+        lib = tmp_path / f"lib{name}.so"
+        subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(tree / f"{name}.cu")],
+                       check=True, capture_output=True)
+        libs[name] = ctypes.CDLL(str(lib))
+    carry = libs["bin_topk"].bin_topk_carry_f32
+    carry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    windowed = libs["windowed_scores"].windowed_scores_f32
+    windowed.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    carry.restype = windowed.restype = ctypes.c_int
+    return carry, windowed
+
+
+@pytest.mark.parametrize("stages", [None, 2])
+def test_f32_kernels_are_the_same_in_every_repeated_launch(cuda, tmp_path, stages):
+    """A fault of the float32 kernels' TMA ring (a refill overtaking the
+    consumers' reads) changes an output in only some launches: 200 launches
+    of each, as built and at a 2-stage ring, over one super-tile of 16,384
+    rows (every product reaches the carry) and the same rows' scores, must
+    each give the first launch's bits; the first must match the plain twins."""
+    carry_fn, windowed_fn = _tf32_build(tmp_path, stages)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    n, dim, batch, window = 16384, 1024, 128, 8
+    corpus = _unit_rows(n, dim, gen, cuda, torch.float32)
+    queries = _unit_rows(batch, dim, gen, cuda, torch.float32)
+    split = K.split_scratch(queries)
+    steal = K.steal_bits_for(n, n)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def carry():
+        out, partial, groups = K.carry_buffers(
+            corpus, batch, n, K.tf32_supertile_groups(cuda, n, batch, n))
+        assert carry_fn(queries.data_ptr(), split.data_ptr(), corpus.data_ptr(), out.data_ptr(),
+                        partial.data_ptr() if partial is not None else None, batch, n, dim, n,
+                        n, steal, groups, stream) == 0
+        return out.view(torch.int32)
+
+    def windowed():
+        scores = torch.empty(n, batch, device=cuda)
+        wmax = torch.empty(n // window, batch, device=cuda)
+        assert windowed_fn(queries.data_ptr(), split.data_ptr(), corpus.data_ptr(),
+                           scores.data_ptr(), wmax.data_ptr(), batch, n, dim, n - 5, window,
+                           stream) == 0
+        return torch.cat([scores.flatten(), wmax.flatten()]).view(torch.int32)
+
+    first_carry, first_scores = carry(), windowed()
+    want = K.bin_topk_carry_plain(queries, corpus, n, n, steal)
+    want_s, want_w = W.fused_scores_wmax_plain(queries, corpus, n - 5, window)
+    torch.cuda.synchronize()
+    tol = K.score_tolerance(torch.float32, dim)
+    assert float((first_carry.view(torch.float32) - want).abs().max()) <= (
+        2.0 * 2.0 ** (steal - 22) + tol)
+    got_s = first_scores.view(torch.float32)[: n * batch].view(n, batch)
+    assert torch.equal(torch.isneginf(got_s), torch.isneginf(want_s))
+    finite = torch.isfinite(want_s)
+    assert float((got_s[finite] - want_s[finite]).abs().max()) <= tol
+    differing = {"carry": 0, "windowed": 0}
+    for _ in range(200):
+        differing["carry"] += int(not torch.equal(carry(), first_carry))
+        differing["windowed"] += int(not torch.equal(windowed(), first_scores))
+    assert differing == {"carry": 0, "windowed": 0}
 
 
 CARRY_CASES = [
