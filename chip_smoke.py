@@ -267,12 +267,9 @@ def check_bin_topk(device, dtype=torch.bfloat16) -> dict:
     # into tf32 halves, then the carry kernel over `groups` slices of the
     # super-tiles, then, when groups > 1, a max over the groups' partial
     # carries (groups * bins * B f32 read once).
-    if f32:
-        groups = K.tf32_supertile_groups(device, n_pad, batch, bins)
-        per_launch = ["split_tf32_kernel", "bin_carry_tf32_kernel"]
-    else:
-        groups = K.supertile_groups(device, n_pad, batch, bins)
-        per_launch = ["bin_carry_kernel<Bf16Product>"]
+    groups = K.ring_supertile_groups(device, n_pad, batch, bins)
+    per_launch = (["split_tf32_kernel", "ring_carry_kernel<Tf32Stage<false>>"] if f32
+                  else ["ring_carry_kernel<Bf16Stage>"])
     per_launch += ["max_over_groups_kernel"] if groups > 1 else []
     # Operations once, at the card's fastest rate for the input type (TF32
     # for float32 inputs; the 3xTF32 product itself runs three times as
@@ -738,8 +735,8 @@ def check_windowed(device, dtype=torch.bfloat16) -> dict:
     b_ms, b_by = bound_ms(bytes_moved, flops, TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
     # One counted launch is one wrapper call: for float32 the queries' split
     # into tf32 halves, then the kernel.
-    per_launch = (["split_tf32_kernel", "windowed_scores_tf32_kernel"] if f32
-                  else ["windowed_scores_kernel"])
+    per_launch = (["split_tf32_kernel", "ring_windowed_kernel<Tf32Stage<true>>"] if f32
+                  else ["ring_windowed_kernel<Bf16Stage>"])
     log(
         f"  {name} kernel {ms:.4f} ms (with the k=1000 selection "
         f"{with_epilogue_ms:.4f} ms), plain {plain_ms:.4f} ms, library "

@@ -1,8 +1,9 @@
-// Building blocks shared by the port's tiled-product kernels (bin_topk.cu,
-// bin_topk_int8.cu, bin_topk_pipelined.cu, windowed_scores.cu and, through
-// flash_tiles.cuh, the flash-attention kernels). The float32 kernels of
-// bin_topk.cu and windowed_scores.cu run on wgmma (tf32_tiles.cuh) and take
-// only F32Product's split from here.
+// Building blocks shared by the port's mma.sync kernels: the int8 carry
+// (bin_topk_int8.cu), K4's ring-fed carry (bin_topk_pipelined.cu) and,
+// through flash_tiles.cuh, the flash-attention kernels. K1 and K3
+// (bin_topk.cu, windowed_scores.cu) run on wgmma in both element types
+// (ring_tiles.cuh) and take only F32Product's split, the packing constants
+// and `group_supertiles` / `max_over_groups_kernel` from here.
 //
 // Each block computes 64 x 64 tiles of (corpus rows) x (queries) with four
 // warps of 32 x 32. Both operands are row-major with the depth contiguous
@@ -17,11 +18,13 @@
 // serve all three: each 32-byte slice of a stage is one mma k-step, and
 // only the mma instruction differs.
 //
-// The bin-max carry kernel (the port of the TPU's `_bin_topk_kernel` and
-// `_bin_topk_kernel_int8`, lean_explore_tpu/ops/pallas_retrieval.py:214 and
-// :260) is defined here once as a template over the product type, so the
-// bf16 and int8 versions share their tiling and their packing (and K4's
-// ring-fed kernel, in bf16 and f32, its products and its fold).
+// The carry's pieces (the super-tiles of a block, the fold of one
+// super-tile, the store) are templates over the product type: K4 folds
+// bf16 and 3xTF32 products with them, and the int8 carry kernel (the port
+// of the TPU's `_bin_topk_kernel_int8`,
+// lean_explore_tpu/ops/pallas_retrieval.py:260) scaled int8 ones. K1's
+// wgmma kernels (bin_topk.cu) fold with fold_supertile's arithmetic on
+// wgmma's accumulator layout, so K4 equals K1 bit for bit.
 
 #pragma once
 
@@ -232,9 +235,9 @@ __device__ __forceinline__ void mma_stage(typename P::Acc (&acc)[2][4][4], const
   }
 }
 
-// The carry's pieces that the two carry kernels share (bin_carry_kernel
-// below, fed by cp.async, and bin_carry_pipelined_kernel of
-// bin_topk_pipelined.cu, fed by a TMA ring): the super-tiles of a block,
+// The carry's pieces that the two mma.sync carry kernels share
+// (bin_carry_kernel below, fed by cp.async, and bin_carry_pipelined_kernel
+// of bin_topk_pipelined.cu, fed by a TMA ring): the super-tiles of a block,
 // the fold of one super-tile and the store.
 
 // Super-tiles [p_begin, p_end) of group `group` whose slice of bins
@@ -317,12 +320,12 @@ __device__ __forceinline__ void store_carry(float* __restrict__ dst,
       }
 }
 
-// Packed bin-max carry. Grid: x = bin slice (bins / BM), y = query block
-// (ceil(B / BN)), z = super-tile group. Block (x, y, z) owns bins
-// [s0, s0 + BM) for queries [q0, q0 + BN), loops over the super-tiles of
-// its group (rows p * bins + s0 .. + BM), and writes
-// out[z][s0 .. s0 + BM)[q0 .. q0 + BN). Row scales [N] and query scales [B]
-// are read only by the int8 product.
+// Packed bin-max carry of the int8 product. Grid: x = bin slice
+// (bins / BM), y = query block (ceil(B / BN)), z = super-tile group. Block
+// (x, y, z) owns bins [s0, s0 + BM) for queries [q0, q0 + BN), loops over
+// the super-tiles of its group (rows p * bins + s0 .. + BM), and writes
+// out[z][s0 .. s0 + BM)[q0 .. q0 + BN), scaling the products by the row
+// scales [N] and the query scales [B].
 template <class P>
 __global__ void __launch_bounds__(THREADS)
 bin_carry_kernel(const uint8_t* __restrict__ q,        // [B, row_bytes]
@@ -332,6 +335,7 @@ bin_carry_kernel(const uint8_t* __restrict__ q,        // [B, row_bytes]
                  float* __restrict__ out,              // [groups, bins, B]
                  int B, int N, int row_bytes, int n_valid, int bins, int steal_bits,
                  int tiles_per_group) {
+  static_assert(P::kScaled, "K1's unscaled products run on wgmma (bin_topk.cu)");
   __shared__ __align__(16) uint8_t smem_a[2][STAGE_SMEM];
   __shared__ __align__(16) uint8_t smem_b[2][STAGE_SMEM];
 
@@ -350,15 +354,13 @@ bin_carry_kernel(const uint8_t* __restrict__ q,        // [B, row_bytes]
   const uint32_t low_mask = (1u << steal_bits) - 1u;
 
   float qs[4][2];
-  if constexpr (P::kScaled) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+  for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = q0 + frag_col(warp_n, lane, ni, h);
-        qs[ni][h] = n < B ? q_scales[n] : 1.0f;
-      }
-  }
+    for (int h = 0; h < 2; ++h) {
+      const int n = q0 + frag_col(warp_n, lane, ni, h);
+      qs[ni][h] = n < B ? q_scales[n] : 1.0f;
+    }
 
   typename P::Acc acc[2][4][4];
   float carry[2][4][4];

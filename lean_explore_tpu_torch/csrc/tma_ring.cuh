@@ -1,6 +1,6 @@
 // The TMA ring's pieces shared by the ring-fed kernels (bin_topk_pipelined.cu
-// and, through tf32_tiles.cuh, the float32 products of bin_topk.cu and
-// windowed_scores.cu): mbarriers, their bounded wait, the 2-D tile copy
+// and, through ring_tiles.cuh, bin_topk.cu and windowed_scores.cu):
+// mbarriers, their bounded wait, the 2-D tile copy
 // (`cp.async.bulk.tensor.2d`) and the tensor map of a row-major array of
 // 128-byte multiples in the 128-byte swizzle, built on the host through
 // `cuTensorMapEncodeTiled`, which the CUDA runtime looks up in the driver

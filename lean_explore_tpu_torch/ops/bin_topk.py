@@ -10,14 +10,18 @@ and pad rows (r >= n_valid) store 0. The epilogue takes the top-k over
 never exists.
 
 On a CUDA tensor ``bin_topk_carry`` launches the hand-written kernel in
-``csrc/bin_topk.cu`` (design and bound in its header note): the bf16
-product on ``mma.sync`` for a bf16 corpus; for a float32 corpus (the TPU
-kernel's f32 at HIGHEST precision) 3xTF32 on ``wgmma`` fed by a TMA ring
-(``csrc/tf32_tiles.cuh``), each corpus value split into tf32 hi and lo
-once and the queries once a launch into scratch this wrapper allocates
-(0.68 ms at the serving shape on an H100 SXM at 700 W, PERF.md).
-On a CPU tensor it runs ``bin_topk_carry_plain``, the same arithmetic in
-torch ops. There is no fallback from one to the other.
+``csrc/bin_topk.cu`` (design and bound in its header note), on the
+ring-fed ``wgmma`` block of ``csrc/ring_tiles.cuh``: two warpgroups of 64
+bins x 128 queries and a producer warp that keeps a TMA ring of corpus and
+query tiles in flight, one block an SM. A bf16 corpus takes bf16 ``wgmma``
+m64n128k16, bound by the corpus stream (0.22 ms at the serving shape on an
+NVIDIA H100 80GB HBM3 at 700 W, 1.2x the 0.18 ms byte bound; PERF.md); a
+float32 corpus (the TPU kernel's f32 at HIGHEST precision) 3xTF32 on
+m64n128k8, each corpus value split into tf32 hi and lo once and the
+queries once a launch into scratch this wrapper allocates (0.68 ms at the
+serving shape on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md). On a CPU
+tensor it runs ``bin_topk_carry_plain``, the same arithmetic in torch ops.
+There is no fallback from one to the other.
 
 Differences from the TPU version:
 
@@ -42,10 +46,10 @@ PACK_FLOOR = 1e-30
 # or 32 f32 values.
 ROW_MULTIPLE = 64
 STAGE_BYTES = 128
-# The float32 kernels' blocks (csrc/tf32_tiles.cuh TF32_ROWS, TF32_QUERIES):
+# The wgmma kernels' blocks (csrc/ring_tiles.cuh RING_ROWS, RING_QUERIES):
 # 128 corpus rows (two warpgroups of 64) x 128 queries.
-TF32_ROWS = 128
-TF32_QUERIES = 128
+RING_ROWS = 128
+RING_QUERIES = 128
 
 # The float dtypes the carry kernel takes, with the entry point of each.
 KERNEL_ENTRIES = {torch.bfloat16: "bin_topk_carry", torch.float32: "bin_topk_carry_f32"}
@@ -138,19 +142,20 @@ def _configure(lib: ctypes.CDLL) -> None:
 
 
 def supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
-    """Groups the carry kernels split the super-tiles of [n] rows over, so
-    that about four blocks of (64 bins x 64 queries) run per SM."""
+    """Groups the mma.sync carry kernels (K2, K4) split the super-tiles of
+    [n] rows over, so that about four blocks of (64 bins x 64 queries) run
+    per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     blocks = (bins // ROW_MULTIPLE) * -(-batch // 64)
     return max(1, min(-(-n // bins), -(-4 * sms // blocks)))
 
 
-def tf32_supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
-    """Groups the float32 carry kernel splits the super-tiles of [n] rows
-    over: its blocks of (128 bins x 128 queries) take one SM each, so at
-    most one wave of them."""
+def ring_supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
+    """Groups the wgmma carry kernels (bf16 and float32) split the
+    super-tiles of [n] rows over: their blocks of (128 bins x 128 queries)
+    take one SM each, so at most one wave of them."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = -(-bins // TF32_ROWS) * -(-batch // TF32_QUERIES)
+    blocks = -(-bins // RING_ROWS) * -(-batch // RING_QUERIES)
     return max(1, min(-(-n // bins), sms // blocks))
 
 
@@ -227,7 +232,8 @@ def bin_topk_carry(
     64 and D a multiple of 64 (bf16) or 32 (f32); anything else raises.
     ``bin_topk_carry.launches`` counts calls that launch: each runs the carry
     kernel (for float32 after the queries' split) and, when the super-tiles
-    are split over groups, the max over the groups' partial carries.
+    are split over groups (``ring_supertile_groups``), the max over the
+    groups' partial carries.
     """
     n, dim = corpus.shape
     steal_bits = steal_bits_for(n, bins)
@@ -245,7 +251,7 @@ def bin_topk_carry(
     lib = load_library("bin_topk")
     _configure(lib)
     f32 = dtype == torch.float32
-    groups = tf32_supertile_groups(corpus.device, n, batch, bins) if f32 else None
+    groups = ring_supertile_groups(corpus.device, n, batch, bins)
     out, partial, groups = carry_buffers(corpus, batch, bins, groups)
     scratch = split_scratch(queries) if f32 else None
     split = [] if scratch is None else [scratch.data_ptr()]

@@ -12,15 +12,19 @@ than k scores exceed x, so fewer than k windows have a maximum above x's
 window, and x's window is among the top k.
 
 On a CUDA tensor ``fused_scores_wmax`` launches the hand-written kernel in
-``csrc/windowed_scores.cu``: the bf16 product on ``mma.sync`` for a bf16
-corpus; for a float32 corpus (the TPU kernel's f32 at HIGHEST precision)
-3xTF32 on ``wgmma`` fed by a TMA ring (``csrc/tf32_tiles.cuh``), a
-persistent grid over 128-row tiles, each corpus value split into tf32 hi
-and lo once and the queries once a launch into scratch this wrapper
-allocates (0.66-0.68 ms at the serving shape on an H100 SXM at 700 W,
-PERF.md). On CPU tensors it runs ``fused_scores_wmax_plain``. There is no
-fallback from one to the other. Unlike the TPU version the query batch is
-not padded to a multiple of 8.
+``csrc/windowed_scores.cu``, on the ring-fed ``wgmma`` block of
+``csrc/ring_tiles.cuh`` (a TMA ring of corpus and query tiles, two
+warpgroups of 64 rows x 128 queries) over a persistent grid of 128-row
+tiles; each warpgroup stages its scores in shared memory, writes them out
+16 bytes a store (4 when B % 4 != 0) and takes the window maxima from
+them. A bf16 corpus takes bf16 ``wgmma`` m64n128k16, bound by the corpus
+stream and the score stores (0.27 ms at the serving shape on an NVIDIA
+H100 80GB HBM3 at 700 W, 1.15x the 0.24 ms byte bound; PERF.md); a float32
+corpus (the TPU kernel's f32 at HIGHEST precision) 3xTF32 on m64n128k8,
+each corpus value split into tf32 hi and lo once and the queries once a
+launch into scratch this wrapper allocates. On CPU tensors it runs
+``fused_scores_wmax_plain``. There is no fallback from one to the other.
+Unlike the TPU version the query batch is not padded to a multiple of 8.
 """
 
 import ctypes
@@ -66,10 +70,9 @@ def fused_scores_wmax(
 
     CPU tensors take ``fused_scores_wmax_plain``. CUDA tensors launch the
     kernel, which takes a bf16 or float32 corpus [N, D] (queries are cast
-    to its dtype), contiguous, with N a multiple of 64, D a multiple of 64
-    (bf16) or 32 (f32) and 64 % window == 0 (the tiles of bin_topk,
-    csrc/mma_tiles.cuh: a window lies inside one 64-row tile); anything
-    else raises. ``fused_scores_wmax.launches`` counts
+    to its dtype), both contiguous and 16-byte aligned, with N a multiple
+    of 64, D a multiple of 64 (bf16) or 32 (f32) and 64 % window == 0 (a
+    window lies inside one warpgroup's 64 rows); anything else raises. ``fused_scores_wmax.launches`` counts
     launches (for float32 each runs the queries' split, then the kernel).
     """
     if corpus.device.type == "cpu" and queries.device.type == "cpu":
@@ -88,8 +91,8 @@ def fused_scores_wmax(
     q = queries.to(dtype).contiguous()
     if q.ndim != 2 or q.shape[1] != dim or q.shape[0] == 0:
         raise ValueError(f"queries {tuple(queries.shape)} vs corpus {(n, dim)}")
-    if not corpus.is_contiguous() or corpus.data_ptr() % 16:
-        raise ValueError("windowed_scores kernel needs a contiguous aligned corpus")
+    if not corpus.is_contiguous() or corpus.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("windowed_scores kernel needs a contiguous aligned corpus and queries")
     if n % ROW_MULTIPLE or dim % depth_multiple(dtype) or ROW_MULTIPLE % window:
         raise ValueError(
             f"windowed_scores kernel needs rows ({n}) a multiple of "

@@ -18,7 +18,10 @@ points on the same inputs: ``bin_topk_carry`` (bf16),
 ring stages, bf16 and the same corpus in float32) and ``windowed_scores``
 (bf16) at the serving shape (300,000 valid rows of a 300,032 x 1024
 unit-row corpus, B = 128, bins = 4096, window 8) and two small shapes,
-compared bit for bit; ``bin_topk_carry_f32`` and ``windowed_scores_f32``
+compared bit for bit (K1 and K3 in bf16 on wgmma in newer trees, on
+mma.sync in older ones, each build's bf16 carry launched with its own
+wrapper's super-tile groups, read from its source); ``bin_topk_carry_f32``
+and ``windowed_scores_f32``
 (float32: 3xTF32 on mma.sync in older trees, on wgmma with a ``q_split``
 scratch argument in newer ones, each tree's C interface read from its
 source),
@@ -39,8 +42,9 @@ within ``ops.flash_attention.kernel_tolerance`` at the serving shape (B =
 64, T = 512, 16/8 heads, DH 128, ragged lengths) and a small DH 64 shape,
 the backward's dq, dk and dv against ``attention_flash_bwd_plain`` within
 ``bwd_kernel_tolerance`` at the backward's two shapes. Then the CUDA-event
-mean of 20 launches of each build's float32 retrieval entries at the
-serving shape, and of its forwards at chip_smoke.py's serving
+mean of 20 launches of each build's retrieval entries, bf16 and float32, at
+the serving shape (six rounds of turns: a few percent of drift hides a 1%
+difference in fewer), and of its forwards at chip_smoke.py's serving
 shape (B 64 x T 512, its ragged and left-padded mask, then phase 4d's
 embed batch's mask) and training shape (B 32 x T 256, the backward check's
 mask, then 5b's documents' mask and full rows), and of the backward
@@ -79,6 +83,8 @@ BWD_ENTRIES = {
     torch.bfloat16: ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
     torch.float32: ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32"),
 }
+# Rounds of turns (other, this, this, other) of the retrieval timing.
+RETRIEVAL_ROUNDS = 6
 # (n_rows, n_valid, dim, batch, bins, window)
 SHAPES = (
     (300_032, 300_000, 1024, 128, 4096, 8),
@@ -138,11 +144,19 @@ def takes_split(csrc: Path) -> bool:
     return "void* q_split" in (csrc / "bin_topk.cu").read_text()
 
 
-def _configure(kernel: str, lib: ctypes.CDLL, split: bool = True) -> None:
+def bf16_carry_on_ring(csrc: Path) -> bool:
+    """Whether a tree's bf16 carry runs the wgmma kernel, whose wrapper
+    takes ``ring_supertile_groups`` (else ``supertile_groups``)."""
+    return "Bf16Stage" in (csrc / "bin_topk.cu").read_text()
+
+
+def _configure(kernel: str, lib: ctypes.CDLL, split: bool = True, ring: bool = True) -> None:
     """Sets the argument types of a library's entries; ``split`` says
     whether its float32 retrieval entries take the ``q_split`` scratch, and
-    is kept on the library as ``f32_takes_split``."""
+    ``ring`` whether its bf16 carry is the wgmma kernel; both are kept on
+    the library (``f32_takes_split``, ``bf16_on_ring``)."""
     lib.f32_takes_split = split
+    lib.bf16_on_ring = ring
     extra = [ctypes.c_void_p] if split else []
     if kernel == "bin_topk":
         fns = [lib.bin_topk_carry, lib.bin_topk_carry_f32]
@@ -192,15 +206,15 @@ def split_args(lib, q) -> list:
 def run_bin_topk(lib, q, corpus, n_valid, bins) -> torch.Tensor:
     from lean_explore_tpu_torch.ops.bin_topk import (
         carry_buffers,
+        ring_supertile_groups,
         steal_bits_for,
-        tf32_supertile_groups,
     )
 
     n, dim = corpus.shape
     f32 = corpus.dtype == torch.float32
     groups = None
-    if f32 and lib.f32_takes_split:
-        groups = tf32_supertile_groups(corpus.device, n, q.shape[0], bins)
+    if lib.f32_takes_split if f32 else lib.bf16_on_ring:
+        groups = ring_supertile_groups(corpus.device, n, q.shape[0], bins)
     out, partial, groups = carry_buffers(corpus, q.shape[0], bins, groups)
     stream = torch.cuda.current_stream().cuda_stream
     fn = lib.bin_topk_carry_f32 if f32 else lib.bin_topk_carry
@@ -336,11 +350,11 @@ def compare_flash(builds) -> tuple[list[dict], bool]:
     return results, ok
 
 
-def in_turns(builds, kernel: str, run, reps: int = 20) -> list:
+def in_turns(builds, kernel: str, run, reps: int = 20, rounds: int = 1) -> list:
     """CUDA-event ms per launch of ``run(lib)`` with each build's library of
-    ``kernel``, in turns: other, this, this, other."""
+    ``kernel``, in turns: other, this, this, other, ``rounds`` times."""
     times = []
-    for tag in ("other", "this", "this", "other"):
+    for tag in ("other", "this", "this", "other") * rounds:
         lib = builds[tag][kernel][0]
         run(lib)
         torch.cuda.synchronize()
@@ -355,27 +369,28 @@ def in_turns(builds, kernel: str, run, reps: int = 20) -> list:
     return times
 
 
-def time_retrieval_f32(builds) -> None:
-    """Both builds' float32 retrieval entries at the serving shape (the
-    first of SHAPES, in float32), in turns."""
+def time_retrieval(builds) -> None:
+    """Both builds' K1 and K3 entries, bf16 and float32, at the serving
+    shape (the first of SHAPES), in RETRIEVAL_ROUNDS rounds of turns."""
     n, n_valid, dim, batch, bins, window = SHAPES[0]
-    gen = torch.Generator(device="cuda").manual_seed(n + batch)
-    corpus = torch.randn(n, dim, generator=gen, device="cuda")
-    corpus = corpus / corpus.norm(dim=1, keepdim=True)
-    corpus[n_valid:] = 0
-    q = torch.randn(batch, dim, generator=gen, device="cuda")
-    q = q / q.norm(dim=1, keepdim=True)
-    for kernel, source, run in (
-        ("bin_topk_f32", "bin_topk", lambda lib: run_bin_topk(lib, q, corpus, n_valid, bins)),
-        ("windowed_scores_f32", "windowed_scores",
-         lambda lib: run_windowed(lib, q, corpus, n_valid, window, joined=False)),
-    ):
-        print(json.dumps({
-            "kernel": kernel, "shape": "serving", "rows": n, "n_valid": n_valid, "dim": dim,
-            "batch": batch, "bins": bins, "window": window,
-            "ms_in_turns": in_turns(builds, source, run),
-        }), flush=True)
-    del corpus, q
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        gen = torch.Generator(device="cuda").manual_seed(n + batch)
+        corpus = torch.randn(n, dim, generator=gen, device="cuda")
+        corpus = (corpus / corpus.norm(dim=1, keepdim=True)).to(dtype)
+        corpus[n_valid:] = 0
+        q = torch.randn(batch, dim, generator=gen, device="cuda")
+        q = (q / q.norm(dim=1, keepdim=True)).to(dtype)
+        for kernel, source, run in (
+            ("bin_topk", "bin_topk", lambda lib: run_bin_topk(lib, q, corpus, n_valid, bins)),
+            ("windowed_scores", "windowed_scores",
+             lambda lib: run_windowed(lib, q, corpus, n_valid, window, joined=False)),
+        ):
+            print(json.dumps({
+                "kernel": kernel + suffix, "shape": "serving", "rows": n, "n_valid": n_valid,
+                "dim": dim, "batch": batch, "bins": bins, "window": window,
+                "ms_in_turns": in_turns(builds, source, run, rounds=RETRIEVAL_ROUNDS),
+            }), flush=True)
+        del corpus, q
 
 
 def time_forward(builds) -> None:
@@ -533,7 +548,7 @@ def main() -> int:
               for tag, csrc in trees.items()}
     for tag, libs in builds.items():
         for kernel, (lib, _) in libs.items():
-            _configure(kernel, lib, takes_split(trees[tag]))
+            _configure(kernel, lib, takes_split(trees[tag]), bf16_carry_on_ring(trees[tag]))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -592,7 +607,7 @@ def main() -> int:
         more, more_ok = compare(builds)
         results += more
         ok &= more_ok
-    time_retrieval_f32(builds)
+    time_retrieval(builds)
     time_forward(builds)
     time_bwd(builds)
     for tag, libs in builds.items():

@@ -58,7 +58,7 @@ SOURCE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tf32_tiles.cuh"
+#include "ring_tiles.cuh"
 
 constexpr int WGMMA_SMEM = 65536;
 

@@ -22,10 +22,12 @@ registers over a 4-stage ring, where shared memory holds it: the kernel
 then spills),
 ``carry_split_each_step`` (K1 splits each k8 slice of a stage just before
 its three products, as K3 does), ``window_2_stages`` (K3's 3 stages cut
-to 2) and ``window_split_first`` (K3 splits the whole stage first, as K1
-does). Base is held against the plain twins (``bin_topk_carry_plain``
-within two packing quanta plus ``score_tolerance``, ``fused_scores_wmax_plain``
-within ``score_tolerance``). Then the CUDA-event mean of 20 launches of
+to 2), ``window_split_first`` (K3 splits the whole stage first, as K1
+does) and ``window_thread_store`` (K3's warpgroups write their staged
+scores 4 bytes a store, where they write 16). Base
+is held against the plain twins (``bin_topk_carry_plain`` within two
+packing quanta plus ``score_tolerance``, ``fused_scores_wmax_plain`` within
+``score_tolerance``). Then the CUDA-event mean of 20 launches of
 each build's entry, in turns (base, the variants, the variants again in
 reverse, base), at the serving shape: 300,000 valid unit rows of a
 300,032 x 1024 float32 corpus, B = 128, bins = 4096, window 8. Prints the
@@ -52,55 +54,66 @@ sys.path.insert(0, str(REPO / "scripts"))
 
 N_ROWS, N_VALID, DIM, BATCH, BINS, WINDOW = 300_032, 300_000, 1024, 128, 4096, 8
 K1, K3 = "bin_topk_f32", "windowed_scores_f32"
+# The ring's fill (ring_tiles.cuh), shared by the bf16 and the f32 kernels.
 FILL = (
-    "  mbar_arrive_expect_tx(full, TF32_STAGE);\n"
+    "  mbar_arrive_expect_tx(full, RowRing<QUERY_BOXES>::STAGE);\n"
     "  tma_load(stage, corpus, k0, row0, full);\n"
-    "  tma_load(stage + CORPUS_BOX, q_hi, k0, q0, full);\n"
-    "  tma_load(stage + CORPUS_BOX + QUERY_BOX, q_lo, k0, q0, full);\n"
+    "  tma_load(stage + CORPUS_BOX, queries, k0, q0, full);\n"
+    "  if constexpr (QUERY_BOXES == 2) tma_load(stage + CORPUS_BOX + QUERY_BOX, q_lo, k0, q0, full);\n"
 )
+NO_QUERY_COPIES = (
+    "  mbar_arrive_expect_tx(full, CORPUS_BOX);\n"
+    "  tma_load(stage, corpus, k0, row0, full);\n"
+)
+# The carry kernel's carry in registers where shared memory holds it (both
+# element types).
+CARRY_IN_REGISTERS = [
+    ("bin_topk.cu", "constexpr int GROUP_THREADS = 128;", "constexpr int GROUP_THREADS = 1;", 1),
+    ("bin_topk.cu",
+     "  float* carry = reinterpret_cast<float*>(ring.after()) +\n"
+     "                 (warp >> 2) * RING_ACC * GROUP_THREADS + (warp & 3) * 32 + lane;\n",
+     "  float carry_registers[RING_ACC];\n"
+     "  float* carry = carry_registers;\n", 1)]
+# The windowed kernel's rows written 4 bytes a store where B % 4 == 0 allows
+# 16 (both element types).
+THREAD_STORE = [("windowed_scores.cu", "  if ((B & 3) == 0) {", "  if (false) {", 1)]
 # variant: (whether it computes base's function, the kernels it is timed on,
 # [(file, string, replacement, occurrences)])
 VARIANTS = {
     "no_query_copies": (False, (K1, K3), [
-        ("tf32_tiles.cuh", FILL,
-         "  mbar_arrive_expect_tx(full, CORPUS_BOX);\n"
-         "  tma_load(stage, corpus, k0, row0, full);\n", 1)]),
+        ("ring_tiles.cuh", FILL, NO_QUERY_COPIES, 1)]),
     "no_split": (False, (K1, K3), [
-        ("tf32_tiles.cuh", "F32Product::split(raw[kk], hi[kk], lo[kk]);",
+        ("ring_tiles.cuh", "F32Product::split(raw[kk], hi[kk], lo[kk]);",
          "for (int i = 0; i < 4; ++i) hi[kk][i] = lo[kk][i] = raw[kk][i];", 2)]),
     "no_products": (False, (K1, K3), [
-        ("tf32_tiles.cuh", "    wgmma_tf32_rs(acc, ", "    if (false) wgmma_tf32_rs(acc, ", 3)]),
+        ("ring_tiles.cuh", "    wgmma_tf32_rs(acc, ", "    if (false) wgmma_tf32_rs(acc, ", 3)]),
     "no_fold": (False, (K1,), [
         ("bin_topk.cu",
-         "        fold_tf32(carry, acc, (uint32_t)p, bins, s, n_valid, low_mask, warp, lane);",
-         "        for (int i = 0; i < TF32_ACC; ++i) {\n"
+         "        fold_acc(carry, acc, (uint32_t)p, bins, s, n_valid, low_mask, warp, lane);",
+         "        for (int i = 0; i < RING_ACC; ++i) {\n"
          "          carry[i * GROUP_THREADS] += acc[i];\n"
          "          acc[i] = 0.0f;\n"
          "        }", 1)]),
     "no_store": (False, (K3,), [
-        ("windowed_scores.cu", "      store_scores_tf32(acc, staged, ",
+        ("windowed_scores.cu", "      store_scores(acc, ",
          "      float sum = 0.0f;\n"
-         "      for (int i = 0; i < TF32_ACC; ++i) sum += acc[i];\n"
+         "      for (int i = 0; i < RING_ACC; ++i) sum += acc[i];\n"
          "      if (sum == 1234.5f) scores_t[0] = sum;\n"
-         "      if (false) store_scores_tf32(acc, staged, ", 1)]),
+         "      if (false) store_scores(acc, ", 1)]),
     "carry_2_stages": (True, (K1,), [
         ("bin_topk.cu", "constexpr int CARRY_STAGES = 3;", "constexpr int CARRY_STAGES = 2;",
          1)]),
     "carry_in_registers": (True, (K1,), [
         ("bin_topk.cu", "constexpr int CARRY_STAGES = 3;", "constexpr int CARRY_STAGES = 4;", 1),
-        ("bin_topk.cu", "constexpr int GROUP_THREADS = 128;", "constexpr int GROUP_THREADS = 1;", 1),
-        ("bin_topk.cu",
-         "  float* carry = reinterpret_cast<float*>(ring.after()) +\n"
-         "                 (warp >> 2) * TF32_ACC * GROUP_THREADS + (warp & 3) * 32 + lane;\n",
-         "  float carry_registers[TF32_ACC];\n"
-         "  float* carry = carry_registers;\n", 1)]),
+        *CARRY_IN_REGISTERS]),
     "carry_split_each_step": (True, (K1,), [
-        ("bin_topk.cu", "tf32_stage<false>(", "tf32_stage<true>(", 1)]),
+        ("bin_topk.cu", "Tf32Stage<false>", "Tf32Stage<true>", 1)]),
     "window_2_stages": (True, (K3,), [
         ("windowed_scores.cu", "constexpr int WINDOW_STAGES = 3;",
          "constexpr int WINDOW_STAGES = 2;", 1)]),
     "window_split_first": (True, (K3,), [
-        ("windowed_scores.cu", "tf32_stage<true>(", "tf32_stage<false>(", 1)]),
+        ("windowed_scores.cu", "Tf32Stage<true>", "Tf32Stage<false>", 1)]),
+    "window_thread_store": (True, (K3,), THREAD_STORE),
 }
 REPS = 20
 
@@ -123,14 +136,16 @@ def variant_tree(out_dir: Path, edits) -> Path:
     return tree
 
 
-def build_all(out_root: Path) -> dict:
+def build_all(out_root: Path, variants: dict | None = None) -> dict:
     """{variant: {source: (library, ptxas lines)}}, base included, one nvcc
-    per source and variant, all started together."""
+    per source and variant of ``variants`` (default VARIANTS), all started
+    together; each library's bf16 and f32 K1 and K3 entries configured."""
     from compare_torch_kernel_builds import ptxas_functions
     from lean_explore_tpu_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
 
+    variants = VARIANTS if variants is None else variants
     procs = {}
-    for name, edits in [("base", [])] + [(n, v[2]) for n, v in VARIANTS.items()]:
+    for name, edits in [("base", [])] + [(n, v[2]) for n, v in variants.items()]:
         tree = variant_tree(out_root / name, edits)
         for source in ("bin_topk", "windowed_scores"):
             lib = out_root / name / f"lib{source}.so"
@@ -144,11 +159,12 @@ def build_all(out_root: Path) -> dict:
             raise RuntimeError(f"nvcc failed on variant {name} ({source}):\n{log}")
         built.setdefault(name, {})[source] = (ctypes.CDLL(str(lib)), ptxas_functions(log))
     for libs in built.values():
-        k1 = libs["bin_topk"][0].bin_topk_carry_f32
-        k1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        k3 = libs["windowed_scores"][0].windowed_scores_f32
-        k3.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        k1.restype = k3.restype = ctypes.c_int
+        for split, suffix in ((1, "_f32"), (0, "")):
+            k1 = getattr(libs["bin_topk"][0], "bin_topk_carry" + suffix)
+            k1.argtypes = [ctypes.c_void_p] * (4 + split) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            k3 = getattr(libs["windowed_scores"][0], "windowed_scores" + suffix)
+            k3.argtypes = [ctypes.c_void_p] * (4 + split) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            k1.restype = k3.restype = ctypes.c_int
     return built
 
 
@@ -159,7 +175,7 @@ def runners(q, corpus) -> dict:
     from lean_explore_tpu_torch.ops import bin_topk as K
 
     steal = K.steal_bits_for(N_ROWS, BINS)
-    groups = K.tf32_supertile_groups(corpus.device, N_ROWS, BATCH, BINS)
+    groups = K.ring_supertile_groups(corpus.device, N_ROWS, BATCH, BINS)
     split = K.split_scratch(q)
     scores = torch.empty(N_ROWS, BATCH, device="cuda")
     wmax = torch.empty(N_ROWS // WINDOW, BATCH, device="cuda")
@@ -225,35 +241,44 @@ def base_error(kernel: str, got: torch.Tensor, q, corpus) -> tuple[float, float]
     return float((got[finite] - want[finite]).abs().max()), tol
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.parse_args()
+def serving_inputs(dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """(queries, corpus) of the serving shape in ``dtype``: seeded unit rows,
+    the corpus's pad rows zero."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    corpus = torch.zeros(N_ROWS, DIM, device="cuda", dtype=dtype)
+    rows = torch.randn(N_VALID, DIM, generator=gen, device="cuda")
+    corpus[:N_VALID] = (rows / rows.norm(dim=1, keepdim=True)).to(dtype)
+    del rows
+    q = torch.randn(BATCH, DIM, generator=gen, device="cuda")
+    return (q / q.norm(dim=1, keepdim=True)).to(dtype), corpus
+
+
+def measure(variants: dict, runners, base_error, dtype: torch.dtype, build_dir: str,
+            function_tag: str) -> int:
+    """Builds base and ``variants``, holds base to its plain twins and the
+    same-function variants to base's bits, times every build in turns at
+    the serving shape in ``dtype``, prints the ptxas lines of the kernel
+    functions whose name holds ``function_tag``; returns the exit code."""
     if not torch.cuda.is_available():
-        print("time_tf32_variants: needs a CUDA device", file=sys.stderr)
+        print(f"{Path(sys.argv[0]).name}: needs a CUDA device", file=sys.stderr)
         return 2
-    built = build_all(REPO / "build" / "tf32_variants")
+    built = build_all(REPO / "build" / build_dir, variants)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    corpus = torch.zeros(N_ROWS, DIM, device="cuda")
-    rows = torch.randn(N_VALID, DIM, generator=gen, device="cuda")
-    corpus[:N_VALID] = rows / rows.norm(dim=1, keepdim=True)
-    del rows
-    q = torch.randn(BATCH, DIM, generator=gen, device="cuda")
-    q = q / q.norm(dim=1, keepdim=True)
+    q, corpus = serving_inputs(dtype)
     ok = True
     for kernel, (run, output) in runners(q, corpus).items():
-        names = ["base"] + [n for n, v in VARIANTS.items() if kernel in v[1]]
+        names = ["base"] + [n for n, v in variants.items() if kernel in v[1]]
         run(built["base"])
         base = output()
         torch.cuda.synchronize()
         err, tol = base_error(kernel, base, q, corpus)
         same = {}
         for name in names[1:]:
-            if VARIANTS[name][0]:
+            if variants[name][0]:
                 run(built[name])
                 got = output()
                 torch.cuda.synchronize()
@@ -269,10 +294,16 @@ def main() -> int:
     for name, libs in built.items():
         for source, (_, functions) in libs.items():
             for line in functions:
-                if "tf32" in line:
+                if function_tag in line:
                     print(f"{name} {source}: {line}", flush=True)
     print(json.dumps({"right": ok, "card": card}))
     return 0 if ok else 1
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.parse_args()
+    return measure(VARIANTS, runners, base_error, torch.float32, "tf32_variants", "tf32")
 
 
 if __name__ == "__main__":

@@ -13,9 +13,9 @@ packing quanta (2^steal_bits ulps of [2, 4), 2^-22 each) (derivation in
 chip_smoke.py). The int8 kernel's products are exact integers and its f32
 steps are rounded as its twin's, so its carry equals the twin's bit for bit.
 The ring-fed carry kernel (K4) runs K1's products in K1's order, so its
-carry equals K1's kernel carry bit for bit; for float32 K4 runs them on
-mma.sync m16n8k8 and K1 on wgmma m64n128k8, whose tf32 k8 steps give the
-same bits.
+carry equals K1's kernel carry bit for bit: K4 runs them on mma.sync
+(m16n8k16 bf16, m16n8k8 tf32) and K1 on wgmma (m64n128k16, m64n128k8),
+whose k steps give the same bits.
 The float32 kernels (3xTF32) are held to 3 * 2^-22 + 7 * D * 2^-24 (the
 split's error and truncating tensor-core sums; ops.bin_topk.score_tolerance),
 and flash attention on valid rows to ops.flash_attention.kernel_tolerance:
@@ -56,6 +56,11 @@ def _unit_rows(n, d, gen, device, dtype=torch.bfloat16):
         (4096 * 5, 4096 * 5, 1, 4096),  # one query, whole super-tiles
         (2048, 1500, 128, 1024),  # fewer super-tiles than groups
         (64 * 9, 64 * 9, 200, 64),  # two query blocks and a partial one
+        # bins % 128 == 64: the last block's second warpgroup lies past the
+        # bins; N % 128 == 64: the last super-tile ends inside a block
+        (192 * 10 + 64, 192 * 10, 1, 192),
+        (64 * 33, 64 * 33 - 17, 37, 64),
+        (64 * 17, 1000, 200, 192),
     ],
 )
 def test_carry_matches_plain(cuda, n, n_valid, batch, bins):
@@ -164,7 +169,13 @@ def test_int8_dense_index_search_takes_the_kernel(cuda):
 
 @pytest.mark.parametrize(
     "n,n_valid,batch,window",
-    [(4096, 4000, 37, 8), (640, 640, 1, 16), (64 * 9, 500, 200, 64)],
+    [
+        (4096, 4000, 37, 8),
+        (640, 640, 1, 16),
+        (64 * 9, 500, 200, 64),  # N / 64 odd: a half tile of 128 rows
+        (64 * 7, 64 * 7 - 9, 130, 64),  # a half tile, B % 4 != 0: thread stores
+        (64 * 3, 64 * 3 - 1, 8, 8),  # 16-byte stores of rows narrower than a query block
+    ],
 )
 def test_windowed_scores_match_plain(cuda, n, n_valid, batch, window):
     gen = torch.Generator(device=cuda).manual_seed(n + batch + 2)
@@ -246,6 +257,7 @@ def test_f32_carry_matches_plain(cuda, n, n_valid, batch, bins, dim):
         (64 * 9, 500, 200, 64, 32),  # N / 64 odd: a half tile of 128 rows
         (64 * 15, 64 * 15 - 3, 100, 1, 1024),  # window 1, the full depth
         (64 * 7, 64 * 7, 130, 8, 96),  # a second query block of 2, B % 4 != 0
+        (64 * 3, 64 * 3 - 2, 8, 8, 64),  # 16-byte stores of rows narrower than a query block
     ],
 )
 def test_f32_windowed_scores_match_plain(cuda, n, n_valid, batch, window, dim):
@@ -278,10 +290,11 @@ def test_f32_dense_index_search_takes_the_kernel(cuda):
     assert ids[:, 0].tolist() == [0, 1, 2, 3, 4] == ids_w[:, 0].tolist()
 
 
-def _tf32_build(tmp_path, stages):
+def _ring_build(tmp_path, stages, dtype):
     """bin_topk.cu and windowed_scores.cu built as they are (stages None) or
-    with both float32 rings cut to `stages` stages, each from a copy of csrc/
-    under tmp_path; (carry entry, windowed entry)."""
+    with their four rings (bf16 and float32) cut to `stages` stages, each
+    from a copy of csrc/ under tmp_path; (carry entry, windowed entry) of
+    `dtype`."""
     import ctypes
     import re
     import shutil
@@ -293,7 +306,9 @@ def _tf32_build(tmp_path, stages):
     shutil.copytree(CSRC_DIR, tree)
     if stages is not None:
         for name, constant in (("bin_topk.cu", "CARRY_STAGES"),
-                               ("windowed_scores.cu", "WINDOW_STAGES")):
+                               ("windowed_scores.cu", "WINDOW_STAGES"),
+                               ("bin_topk.cu", "BF16_CARRY_STAGES"),
+                               ("windowed_scores.cu", "BF16_WINDOW_STAGES")):
             source, found = re.subn(rf"constexpr int {constant} = \d+;",
                                     f"constexpr int {constant} = {stages};",
                                     (tree / name).read_text())
@@ -305,34 +320,34 @@ def _tf32_build(tmp_path, stages):
         subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(tree / f"{name}.cu")],
                        check=True, capture_output=True)
         libs[name] = ctypes.CDLL(str(lib))
-    carry = libs["bin_topk"].bin_topk_carry_f32
-    carry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    windowed = libs["windowed_scores"].windowed_scores_f32
-    windowed.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    suffix = "_f32" if dtype == torch.float32 else ""
+    split = 1 if dtype == torch.float32 else 0  # the f32 entries take q_split
+    carry = getattr(libs["bin_topk"], "bin_topk_carry" + suffix)
+    carry.argtypes = [ctypes.c_void_p] * (4 + split) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    windowed = getattr(libs["windowed_scores"], "windowed_scores" + suffix)
+    windowed.argtypes = [ctypes.c_void_p] * (4 + split) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     carry.restype = windowed.restype = ctypes.c_int
     return carry, windowed
 
 
-@pytest.mark.parametrize("stages", [None, 2])
-def test_f32_kernels_are_the_same_in_every_repeated_launch(cuda, tmp_path, stages):
-    """A fault of the float32 kernels' TMA ring (a refill overtaking the
-    consumers' reads) changes an output in only some launches: 200 launches
-    of each, as built and at a 2-stage ring, over one super-tile of 16,384
-    rows (every product reaches the carry) and the same rows' scores, must
-    each give the first launch's bits; the first must match the plain twins."""
-    carry_fn, windowed_fn = _tf32_build(tmp_path, stages)
+def _check_repeated_launches(cuda, tmp_path, stages, dtype):
+    """200 launches of the carry and windowed kernels of `dtype`, built as
+    they are or at `stages` ring stages, over one super-tile of 16,384 rows
+    (every product reaches the carry) and the same rows' scores, each equal
+    to the first launch's bits; the first held to the plain twins."""
+    carry_fn, windowed_fn = _ring_build(tmp_path, stages, dtype)
     gen = torch.Generator(device=cuda).manual_seed(12)
     n, dim, batch, window = 16384, 1024, 128, 8
-    corpus = _unit_rows(n, dim, gen, cuda, torch.float32)
-    queries = _unit_rows(batch, dim, gen, cuda, torch.float32)
-    split = K.split_scratch(queries)
+    corpus = _unit_rows(n, dim, gen, cuda, dtype)
+    queries = _unit_rows(batch, dim, gen, cuda, dtype)
+    split = [K.split_scratch(queries).data_ptr()] if dtype == torch.float32 else []
     steal = K.steal_bits_for(n, n)
     stream = torch.cuda.current_stream().cuda_stream
 
     def carry():
         out, partial, groups = K.carry_buffers(
-            corpus, batch, n, K.tf32_supertile_groups(cuda, n, batch, n))
-        assert carry_fn(queries.data_ptr(), split.data_ptr(), corpus.data_ptr(), out.data_ptr(),
+            corpus, batch, n, K.ring_supertile_groups(cuda, n, batch, n))
+        assert carry_fn(queries.data_ptr(), *split, corpus.data_ptr(), out.data_ptr(),
                         partial.data_ptr() if partial is not None else None, batch, n, dim, n,
                         n, steal, groups, stream) == 0
         return out.view(torch.int32)
@@ -340,7 +355,7 @@ def test_f32_kernels_are_the_same_in_every_repeated_launch(cuda, tmp_path, stage
     def windowed():
         scores = torch.empty(n, batch, device=cuda)
         wmax = torch.empty(n // window, batch, device=cuda)
-        assert windowed_fn(queries.data_ptr(), split.data_ptr(), corpus.data_ptr(),
+        assert windowed_fn(queries.data_ptr(), *split, corpus.data_ptr(),
                            scores.data_ptr(), wmax.data_ptr(), batch, n, dim, n - 5, window,
                            stream) == 0
         return torch.cat([scores.flatten(), wmax.flatten()]).view(torch.int32)
@@ -349,7 +364,7 @@ def test_f32_kernels_are_the_same_in_every_repeated_launch(cuda, tmp_path, stage
     want = K.bin_topk_carry_plain(queries, corpus, n, n, steal)
     want_s, want_w = W.fused_scores_wmax_plain(queries, corpus, n - 5, window)
     torch.cuda.synchronize()
-    tol = K.score_tolerance(torch.float32, dim)
+    tol = K.score_tolerance(dtype, dim)
     assert float((first_carry.view(torch.float32) - want).abs().max()) <= (
         2.0 * 2.0 ** (steal - 22) + tol)
     got_s = first_scores.view(torch.float32)[: n * batch].view(n, batch)
@@ -361,6 +376,23 @@ def test_f32_kernels_are_the_same_in_every_repeated_launch(cuda, tmp_path, stage
         differing["carry"] += int(not torch.equal(carry(), first_carry))
         differing["windowed"] += int(not torch.equal(windowed(), first_scores))
     assert differing == {"carry": 0, "windowed": 0}
+
+
+@pytest.mark.parametrize("stages", [None, 2])
+def test_f32_kernels_are_the_same_in_every_repeated_launch(cuda, tmp_path, stages):
+    """A fault of the float32 kernels' TMA ring (a refill overtaking the
+    consumers' reads) changes an output in only some launches: 200 launches
+    of each, as built and at a 2-stage ring, must each give the first
+    launch's bits; the first must match the plain twins."""
+    _check_repeated_launches(cuda, tmp_path, stages, torch.float32)
+
+
+@pytest.mark.parametrize("stages", [None, 2])
+def test_bf16_kernels_are_the_same_in_every_repeated_launch(cuda, tmp_path, stages):
+    """The same for the bf16 kernels' ring (and K3's staged scores, which
+    a warpgroup must not overwrite before all its threads have stored
+    them): 200 launches as built and at a 2-stage ring."""
+    _check_repeated_launches(cuda, tmp_path, stages, torch.bfloat16)
 
 
 CARRY_CASES = [
