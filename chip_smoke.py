@@ -14,7 +14,9 @@ Phases, each announced before it starts and timed after it ends:
    logged beside the floor of their three products at the TF32 peak),
    bin_topk_pipelined over the same inputs
    (its carry equal to bin_topk's kernel carry bit for bit, for 2, 3 and 4
-   ring stages, and timed beside it), bin_topk_int8, windowed_scores over a bf16
+   ring stages, and timed beside it), bin_topk_int8 (bit for bit against
+   its twin, also at bins = 4160 and B = 129, and in each of 200 repeated
+   launches against the first), windowed_scores over a bf16
    and a float32 corpus, and flash_attention over bf16 and float32 inputs
    at the Qwen3-0.6B geometry, at the serving shape (B 64 x T 512) and the
    training shape (B 32 x T 256), and on the masks of the paths it serves
@@ -545,8 +547,15 @@ def _check_bin_topk_int8_case(name, queries, codes, scales, n_valid, k, bins) ->
 
 
 def check_bin_topk_int8(device) -> dict:
+    """K2's carry equals its plain twin bit for bit at the serving shape
+    (with the planted matches), B = 1, B = 129 (a second query block of
+    one), bins = 4160 (the last block's second warpgroup past the bins), a
+    partial final super-tile and a corpus whose pad rows must never be
+    selected; in each of PIPELINE_REPEATS launches at the serving shape and
+    at one super-tile of 65,536 rows its carry equals the first launch's.
+    Then times it beside its twin, its bound and the library call."""
     from lean_explore_tpu_torch.ops import bin_topk_int8 as K8
-    from lean_explore_tpu_torch.ops.bin_topk import steal_bits_for, supertile_groups
+    from lean_explore_tpu_torch.ops.bin_topk import ring_supertile_groups, steal_bits_for
     from lean_explore_tpu_torch.ops.quant import quantize_rows_device
 
     gen = torch.Generator(device=device).manual_seed(10)
@@ -566,6 +575,10 @@ def check_bin_topk_int8(device) -> dict:
     if int(top[0, 0]) != 123_457 or int(top[1, 0]) != n_real - 5:
         raise AssertionError("int8: planted exact matches were not ranked first")
     err = max(err, _check_bin_topk_int8_case("B=1", q[:1], codes, scales, n_real, k, bins))
+    extra = torch.randn(1, dim, generator=gen, device=device)
+    q129 = torch.cat([q, extra / extra.norm(dim=1, keepdim=True)])
+    err = max(err, _check_bin_topk_int8_case("B=129", q129, codes, scales, n_real, k, bins))
+    err = max(err, _check_bin_topk_int8_case("bins=4160", q, codes, scales, n_real, k, 4160))
     n_part = 3 * 4096 + 1024
     err = max(
         err,
@@ -586,8 +599,27 @@ def check_bin_topk_int8(device) -> dict:
         ),
     )
 
-    reps = 20
     q_codes, q_scales = quantize_rows_device(q)
+    # The serving shape, and its first 65,536 rows as one super-tile (bins =
+    # rows, so every product reaches the carry): a fault of the ring may
+    # change a carry in only some launches.
+    for case, n_rows, n_valid, cbins in (("serving shape", n_pad, n_real, bins),
+                                         ("one super-tile", 65_536, 65_536, 65_536)):
+        args = (q_codes, q_scales, codes[:n_rows], scales[:n_rows], n_valid, cbins)
+        first = K8.bin_topk_int8_carry(*args).view(torch.int32)
+        differing = sum(
+            int(not torch.equal(K8.bin_topk_int8_carry(*args).view(torch.int32), first))
+            for _ in range(PIPELINE_REPEATS)
+        )
+        if differing:
+            raise AssertionError(
+                f"bin_topk_int8 {case}: {differing} of {PIPELINE_REPEATS} launches differ "
+                f"from the first"
+            )
+    log(f"  bin_topk_int8: {PIPELINE_REPEATS} launches each at the serving shape and at "
+        f"one super-tile of 65,536 rows: every carry == the first launch's")
+
+    reps = 20
     ms = cuda_ms(
         lambda: K8.bin_topk_int8_carry(q_codes, q_scales, codes, scales, n_real, bins), reps
     )
@@ -617,8 +649,8 @@ def check_bin_topk_int8(device) -> dict:
     )
     ops = 2.0 * n_pad * batch * dim
     b_ms, b_by = bound_ms(bytes_moved, ops, INT8_OP_PER_S)
-    groups = supertile_groups(device, n_pad, batch, bins)
-    per_launch = ["bin_carry_kernel<Int8Product>"] + (
+    groups = ring_supertile_groups(device, n_pad, batch, bins)
+    per_launch = ["ring_carry_kernel<Int8Stage>"] + (
         ["max_over_groups_kernel"] if groups > 1 else []
     )
     log(

@@ -7,17 +7,18 @@
 // in HBM and streams through `n_buffers` VMEM slots by explicit
 // `make_async_copy`, each slot guarded by a DMA semaphore, and its carry is
 // bit-identical to the grid kernel's. This kernel is the same on Hopper: it
-// computes bin_topk.cu's packed carry [bins, B] f32, bit for bit, under the
-// same block decomposition (grid x = bin slice of 64, y = query block of
-// 64, z = super-tile group, then `max_over_groups_kernel` when groups > 1;
-// each block loops over its super-tiles and keeps the running max in
-// registers), with the same mma.sync products (bf16, or 3xTF32 for float32)
-// in the same k order and the same fold (`mma_stage`, `fold_supertile` and
-// `store_carry` of mma_tiles.cuh). Only the loader differs:
+// computes bin_topk.cu's packed carry [bins, B] f32, bit for bit, under
+// the block decomposition of the mma.sync kernel that K1 ran before its
+// wgmma one (grid x = bin slice of 64, y = query block of 64, z = super-tile group,
+// then `max_over_groups_kernel` when groups > 1; each block loops over its
+// super-tiles and keeps the running max in registers), with mma.sync
+// products (bf16, or 3xTF32 for float32) whose k steps add as K1's wgmma
+// steps do, and the same fold (`mma_stage`, `fold_supertile` and
+// `store_carry` of mma_tiles.cuh). Where that kernel had all 128 threads
+// start 16-byte cp.async into two buffers, with a __syncthreads() on
+// either side of every stage's product, K4 is fed by a ring:
 //
-// - bin_topk.cu has all 128 threads start 16-byte cp.async into two
-//   buffers, with a __syncthreads() on either side of every stage's product.
-// - Here a block has 160 threads: consumer warps 0-3 (K1's 2 x 2 layout of
+// - A block has 160 threads: consumer warps 0-3 (K1's 2 x 2 layout of
 //   32 x 32 fragments) and producer warp 4, of which one lane starts the
 //   copies. The producer fills a ring of `n_buffers` stages in dynamic
 //   shared memory. A stage is K1's: 64 corpus rows and 64 query rows of 128
@@ -90,8 +91,7 @@ struct Swizzle128Rows {
   }
 };
 
-// The packed carry of bin_carry_kernel<P> (mma_tiles.cuh), same grid, same
-// output, fed by the TMA ring. `corpus_map` and `query_map` view the corpus
+// K1's packed carry on mma.sync, fed by the TMA ring. `corpus_map` and `query_map` view the corpus
 // [N, row_bytes] and the queries [B, row_bytes] as bytes, in boxes of 64 rows
 // x 128 bytes with the 128-byte swizzle. Dynamic shared memory:
 // ring_smem_bytes(n_buffers): the n_buffers stages from the first 1024-byte
@@ -103,7 +103,6 @@ bin_carry_pipelined_kernel(const __grid_constant__ CUtensorMap corpus_map,
                            float* __restrict__ out,  // [groups, bins, B]
                            int B, int N, int row_bytes, int n_valid, int bins,
                            int steal_bits, int tiles_per_group, int n_buffers) {
-  static_assert(!P::kScaled, "the ring carries the unscaled products only");
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* ring = smem + ((RING_ALIGN - (smem_addr(smem) & (RING_ALIGN - 1))) & (RING_ALIGN - 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + n_buffers * RING_STAGE);
@@ -160,11 +159,9 @@ bin_carry_pipelined_kernel(const __grid_constant__ CUtensorMap corpus_map,
   const int warp_m = warp & 1;
   const int warp_n = warp >> 1;
   const uint32_t low_mask = (1u << steal_bits) - 1u;
-  const float no_scales[4][2] = {};
-
-  typename P::Acc acc[2][4][4];
+  float acc[2][4][4];
   float carry[2][4][4];
-  zero_fragments<P>(acc, carry);
+  zero_fragments(acc, carry);
 
   int slot = 0;
   uint32_t phase = 0;
@@ -181,8 +178,8 @@ bin_carry_pipelined_kernel(const __grid_constant__ CUtensorMap corpus_map,
       phase ^= 1u;
     }
     if ((t % k_steps) == k_steps - 1) {
-      fold_supertile<P>(carry, acc, (uint32_t)(p_begin + t / k_steps), bins, s0, n_valid,
-                        low_mask, nullptr, no_scales, warp_m, lane);
+      fold_supertile(carry, acc, (uint32_t)(p_begin + t / k_steps), bins, s0, n_valid,
+                     low_mask, warp_m, lane);
     }
   }
 
@@ -190,8 +187,7 @@ bin_carry_pipelined_kernel(const __grid_constant__ CUtensorMap corpus_map,
 }
 
 // Launches the pipelined carry kernel over `groups` slices of the
-// super-tiles and, when groups > 1, the max over the partial carries (as
-// launch_bin_carry). Returns the first error: cudaErrorInvalidValue for a
+// super-tiles and, when groups > 1, the max over the partial carries. Returns the first error: cudaErrorInvalidValue for a
 // ring size out of range or a tensor map that cannot be made, the
 // shared-memory attribute's, or cudaGetLastError() after the launches.
 template <class P>

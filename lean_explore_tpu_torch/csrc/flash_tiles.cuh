@@ -249,6 +249,12 @@ __device__ __forceinline__ void fence_operands(uint32_t (&x)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_operands(int32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
 // Writes made by this thread's generic proxy (cp.async, st.shared) visible
 // to the async proxy that wgmma reads shared memory through.
 __device__ __forceinline__ void fence_proxy_async() {

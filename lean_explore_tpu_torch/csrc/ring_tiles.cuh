@@ -1,30 +1,38 @@
-// The ring-fed wgmma block of the retrieval kernels K1 and K3 on Hopper
-// (bin_topk.cu and windowed_scores.cu), over a bf16 corpus (wgmma
-// m64n128k16) and a float32 one (3xTF32 on wgmma m64n128k8).
+// The ring-fed wgmma block of the retrieval kernels K1, K2 and K3 on Hopper
+// (bin_topk.cu, bin_topk_int8.cu and windowed_scores.cu), over a bf16
+// corpus (wgmma m64n128k16), an int8 one (m64n128k32 s8, K2 only) and a
+// float32 one (3xTF32 on wgmma m64n128k8).
 //
-// Both kernels multiply a corpus [N, D] by queries [B, D], both with the
+// The kernels multiply a corpus [N, D] by queries [B, D], both with the
 // depth contiguous (K-major, the layout wgmma takes from shared memory for
-// either type). A block is two consumer warpgroups and one producer warp.
-// The producer's lane 0 fills a ring of stages in dynamic shared memory
-// with TMA tile copies in the 128-byte swizzle (tma_ring.cuh); a stage is
-// 128 bytes of depth (64 bf16 or 32 f32 values) of the block's 128 corpus
-// rows and of its 128 queries: one query box in bf16 (32 KB a stage), the
-// hi and the lo halves of the queries in f32 (48 KB). Each warpgroup owns
-// 64 of the corpus rows and holds their 64 x 128 f32 accumulator (64
-// registers a thread). The block, the ring, its fill and drain are one
+// every type, and the only one it takes for 8-bit types). A block is two
+// consumer warpgroups and one producer warp. The producer's lane 0 fills a
+// ring of stages in dynamic shared memory with TMA tile copies in the
+// 128-byte swizzle (tma_ring.cuh); a stage is 128 bytes of depth (64 bf16,
+// 128 int8 or 32 f32 values) of the block's 128 corpus rows and of its 128
+// queries: one query box in bf16 and int8 (32 KB a stage), the hi and the
+// lo halves of the queries in f32 (48 KB). Each warpgroup owns 64 of the
+// corpus rows and holds their 64 x 128 accumulator (64 registers a thread:
+// f32, or s32 for int8). The block, the ring, its fill and drain are one
 // template over the number of query boxes; only the stage's products
 // differ. In bf16 the corpus stream bounds both kernels (on an NVIDIA H100
 // 80GB HBM3 at 700 W the carry reads it at 2.8 TB/s, the windowed kernel at
-// 3.05 TB/s beside its stores); in f32 the three products and the stream
-// together (bin_topk.cu, windowed_scores.cu, PERF.md).
+// 3.05 TB/s beside its stores); in int8 the products and the fold, which
+// comes every 8 stages, outlast the stream of half the bytes by about a
+// sixth; in f32 the three products and the stream together (bin_topk.cu,
+// bin_topk_int8.cu, windowed_scores.cu, PERF.md).
 //
-// bf16. Four m64n128k16 wgmma a stage, the depth in ascending order, A (the
-// group's 64 corpus rows) and B (the queries) both K-major by descriptor
-// (A loaded into registers by ldmatrix measured no different:
+// bf16 and int8. Four wgmma a stage, each 32 bytes deep (m64n128k16 bf16,
+// m64n128k32 s8), the depth in ascending order, A (the group's 64 corpus
+// rows) and B (the queries) both K-major by descriptor; the descriptors of
+// the two types are the same, and so is their advance of 32 bytes a step
+// (A loaded into registers by ldmatrix measured no different in bf16:
 // scripts/time_bf16_variants.py). A wgmma bf16 k16 step adds as mma.sync
 // m16n8k16 does (scripts/compare_torch_kernel_builds.py holds the kernels
 // to the mma.sync kernels before them bit for bit), so the carry and the
 // scores keep their bits and K4 (bin_topk_pipelined.cu) still equals K1.
+// The int8 products are exact integers in s32, whatever the order of the
+// sums, so K2's raw sums are those of any exact product.
 //
 // f32 (3xTF32). x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both
 // rounded to nearest (`cvt.rna`), and lo*hi + hi*lo + hi*hi summed
@@ -81,24 +89,22 @@ __global__ void split_tf32_kernel(const float* __restrict__ x, float* __restrict
 }
 
 // The 64 accumulator registers of an m64n128 wgmma: the operand list and
-// the matching "+f" constraints.
+// the matching constraints ("+f" for f32, "+r" for s32).
 #define ACC128_REGS                                                                     \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "    \
   "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "    \
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define ACC128_OPERANDS(d)                                                                \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),       \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
-      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),       \
-      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define ACC128_CONSTRAINED(c, d)                                                       \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]),     \
+      c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]),   \
+      c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]),  \
+      c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31]), c(d[32]),  \
+      c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]),  \
+      c(d[41]), c(d[42]), c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]),  \
+      c(d[49]), c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),  \
+      c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define ACC128_OPERANDS(d) ACC128_CONSTRAINED("+f", d)
 
 // D[64 x 128] += A[64 x 8] . B[128 x 8]^T in tf32 with f32 sums: A from
 // registers (warp w of the group holds rows 16w .. 16w + 15 in the m16n8k8
@@ -135,11 +141,28 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b));
 }
 
+// The same in int8, a k32 step (32 bytes deep, as a bf16 k16 step is):
+// D[64 x 128] += A[64 x 32] . B[128 x 32]^T in s8 with exact s32 sums, both
+// K-major from swizzled tiles, D in the same register layout.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(int32_t (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(int32_t (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " ACC128_REGS
+      ", %64, %65, p;\n}\n"
+      : ACC128_CONSTRAINED("+r", d)
+      : "l"(a), "l"(b));
+}
+
 #undef ACC128_REGS
 #undef ACC128_OPERANDS
+#undef ACC128_CONSTRAINED
 
 // A ring of n stages of the corpus box and QUERY_BOXES query boxes (1 for
-// bf16, 2 for the f32 halves): the stages from the first 1024-byte
+// bf16 and int8, 2 for the f32 halves): the stages from the first 1024-byte
 // boundary of the block's dynamic shared memory, then n full and n empty
 // mbarriers, then the kernel's other shared memory.
 template <int QUERY_BOXES>
@@ -178,7 +201,7 @@ struct RowRing {
   }
 };
 
-using Bf16Ring = RowRing<1>;
+using OneBoxRing = RowRing<1>;  // bf16 and int8
 using Tf32Ring = RowRing<2>;
 
 // A position in the ring: the slot and the parity of its current pass.
@@ -197,7 +220,7 @@ struct RingSlot {
 // released its last use (on the first pass the parity of the phase before
 // phase 0 passes at once): depth bytes [k0, k0 + 128) of corpus rows
 // [row0, row0 + RING_ROWS) and of query rows [q0, q0 + RING_QUERIES) of
-// `queries` (bf16) or of q_hi and q_lo (f32).
+// `queries` (bf16, int8) or of q_hi and q_lo (f32).
 template <int QUERY_BOXES>
 __device__ __forceinline__ void ring_fill(const RowRing<QUERY_BOXES>& ring, RingSlot& at,
                                           const CUtensorMap* corpus, const CUtensorMap* queries,
@@ -232,12 +255,14 @@ __device__ __forceinline__ void ring_release(const RowRing<QUERY_BOXES>& ring, R
   at.advance(ring.n);
 }
 
-// One stage of a consumer warpgroup over a bf16 ring: waits for the ring's
-// next slot, adds its four k16 products to acc in ascending depth (A = the
-// group's 64 corpus rows, B = the 128 query rows, both by descriptor),
-// waits for them and releases the slot.
-__device__ __forceinline__ void bf16_stage(float (&acc)[RING_ACC], const Bf16Ring& ring,
-                                           RingSlot& at, int warp, int lane) {
+// One stage of a consumer warpgroup over a one-box ring: waits for the
+// ring's next slot, adds its four 32-byte-deep products to acc in ascending
+// depth (bf16 k16 into f32, or int8 k32 into s32: wgmma_ss<128> of acc's
+// type; A = the group's 64 corpus rows, B = the 128 query rows, both by
+// descriptor), waits for them and releases the slot.
+template <class Acc>
+__device__ __forceinline__ void one_box_stage(Acc (&acc)[RING_ACC], const OneBoxRing& ring,
+                                              RingSlot& at, int warp, int lane) {
   mbar_wait(&ring.full[at.slot], at.phase);
   const uint8_t* stage = ring.stage(at.slot);
   const uint64_t q = wgmma_desc(stage + CORPUS_BOX, 16, 1024);
@@ -301,21 +326,47 @@ __device__ __forceinline__ void tf32_stage(float (&acc)[RING_ACC], const Tf32Rin
 }
 
 // The stage of each element type, the parameter of the kernels' templates
-// (bin_topk.cu, windowed_scores.cu): its ring and a consumer warpgroup's
-// step over the ring's next slot.
+// (ring_carry.cuh, windowed_scores.cu): its ring, its accumulator type, a
+// consumer warpgroup's step over the ring's next slot and, where SCALED,
+// the score of an accumulator (else the accumulator itself).
 struct Bf16Stage {
-  using Ring = Bf16Ring;
+  using Ring = OneBoxRing;
+  using Acc = float;
   static constexpr int ELEMENT_BYTES = 2;
+  static constexpr bool SCALED = false;
   __device__ static void step(float (&acc)[RING_ACC], const Ring& ring, RingSlot& at, int warp,
                               int lane) {
-    bf16_stage(acc, ring, at, warp, lane);
+    one_box_stage(acc, ring, at, warp, lane);
+  }
+};
+
+// int8 codes with per-row scales (K2): the score of an exact s32 sum is
+// (f32(raw) * row_scale) * query_scale, each step rounded on its own, the
+// order of the TPU kernel (pallas_retrieval.py:286-288). nvcc would
+// otherwise contract a multiply and the packing's + 3 into one FMA, whose
+// bits the plain twin (ops/bin_topk_int8.py) does not give. |raw| <=
+// 127^2 * D stays below 2^24 for D <= 1024, so the conversion is exact.
+struct Int8Stage {
+  using Ring = OneBoxRing;
+  using Acc = int32_t;
+  static constexpr int ELEMENT_BYTES = 1;
+  static constexpr bool SCALED = true;
+  __device__ static void step(int32_t (&acc)[RING_ACC], const Ring& ring, RingSlot& at,
+                              int warp, int lane) {
+    one_box_stage(acc, ring, at, warp, lane);
+  }
+  __device__ static __forceinline__ float score(int32_t raw, float row_scale,
+                                                float query_scale) {
+    return __fmul_rn(__fmul_rn(__int2float_rn(raw), row_scale), query_scale);
   }
 };
 
 template <bool SPLIT_EACH_STEP>
 struct Tf32Stage {
   using Ring = Tf32Ring;
+  using Acc = float;
   static constexpr int ELEMENT_BYTES = 4;
+  static constexpr bool SCALED = false;
   __device__ static void step(float (&acc)[RING_ACC], const Ring& ring, RingSlot& at, int warp,
                               int lane) {
     tf32_stage<SPLIT_EACH_STEP>(acc, ring, at, warp, lane);
@@ -332,22 +383,25 @@ __device__ __forceinline__ int acc_col(int lane, int i) {
   return (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
 }
 
-__device__ __forceinline__ void zero_acc(float (&x)[RING_ACC]) {
+template <class Acc>
+__device__ __forceinline__ void zero_acc(Acc (&x)[RING_ACC]) {
 #pragma unroll
-  for (int i = 0; i < RING_ACC; ++i) x[i] = 0.0f;
+  for (int i = 0; i < RING_ACC; ++i) x[i] = 0;
 }
 
 // The tensor maps of a launch: the corpus in boxes of RING_ROWS rows and
-// the queries (bf16) or their tf32 halves (f32) in boxes of RING_QUERIES
-// rows, all 128 bytes deep.
+// the queries (bf16, int8) or their tf32 halves (f32) in boxes of
+// RING_QUERIES rows, all 128 bytes deep.
 struct RingMaps {
   CUtensorMap corpus, queries, q_lo;
 };
 
-// A bf16 launch's maps; false when one cannot be made.
-inline bool bf16_maps(const void* q, const void* corpus, int B, int N, int D, RingMaps& maps) {
-  return encode_rows(&maps.corpus, corpus, N, D * 2, RING_ROWS) &&
-         encode_rows(&maps.queries, q, B, D * 2, RING_QUERIES);
+// The maps of a one-box launch (bf16 or int8) over rows of `row_bytes`;
+// false when one cannot be made.
+inline bool one_box_maps(const void* q, const void* corpus, int B, int N, int row_bytes,
+                         RingMaps& maps) {
+  return encode_rows(&maps.corpus, corpus, N, row_bytes, RING_ROWS) &&
+         encode_rows(&maps.queries, q, B, row_bytes, RING_QUERIES);
 }
 
 // An f32 launch's maps and the query split: q_hi and q_lo are the halves of

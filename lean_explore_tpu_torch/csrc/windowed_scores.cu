@@ -192,7 +192,7 @@ extern "C" {
 int windowed_scores(const void* q, const void* corpus, void* scores_t, void* wmax_t, int B,
                     int N, int D, int n_valid, int window, void* stream) {
   tiles::RingMaps maps = {};
-  if (!tiles::bf16_maps(q, corpus, B, N, D, maps)) {
+  if (!tiles::one_box_maps(q, corpus, B, N, D * 2, maps)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return tiles::launch_ring_windowed<tiles::Bf16Stage>(maps, scores_t, wmax_t, B, N, D, n_valid,

@@ -142,18 +142,17 @@ def _configure(lib: ctypes.CDLL) -> None:
 
 
 def supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
-    """Groups the mma.sync carry kernels (K2, K4) split the super-tiles of
-    [n] rows over, so that about four blocks of (64 bins x 64 queries) run
-    per SM."""
+    """Groups K4's mma.sync carry kernel splits the super-tiles of [n] rows
+    over, so that about four blocks of (64 bins x 64 queries) run per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     blocks = (bins // ROW_MULTIPLE) * -(-batch // 64)
     return max(1, min(-(-n // bins), -(-4 * sms // blocks)))
 
 
 def ring_supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
-    """Groups the wgmma carry kernels (bf16 and float32) split the
-    super-tiles of [n] rows over: their blocks of (128 bins x 128 queries)
-    take one SM each, so at most one wave of them."""
+    """Groups the wgmma carry kernels (K1 in bf16 and float32, K2 in int8)
+    split the super-tiles of [n] rows over: their blocks of (128 bins x 128
+    queries) take one SM each, so at most one wave of them."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     blocks = -(-bins // RING_ROWS) * -(-batch // RING_QUERIES)
     return max(1, min(-(-n // bins), sms // blocks))

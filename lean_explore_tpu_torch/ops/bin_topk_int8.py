@@ -28,13 +28,14 @@ from lean_explore_tpu_torch.ops.bin_topk import (
     check_carry_inputs,
     carry_buffers,
     fold_supertiles,
+    ring_supertile_groups,
     steal_bits_for,
     unpack_topk,
 )
 from lean_explore_tpu_torch.ops.cuda_build import load_library
 from lean_explore_tpu_torch.ops.quant import int8_products, quantize_rows_device
 
-# A pipeline stage of the kernel is 128 bytes deep: 128 int8 values.
+# A ring stage of the kernel is 128 bytes deep: 128 int8 values.
 DEPTH_MULTIPLE = 128
 
 
@@ -79,7 +80,8 @@ def bin_topk_int8_carry(
     ``q_scales`` [B] and ``scales`` [N], all contiguous, with N and bins
     multiples of 64 and D a multiple of 128; anything else raises.
     ``bin_topk_int8_carry.launches`` counts calls that launch (the carry
-    kernel and, with the super-tiles split over groups, the max over them).
+    kernel and, with the super-tiles split over groups
+    (``ring_supertile_groups``), the max over them).
     """
     n, dim = codes.shape
     batch = q_codes.shape[0]
@@ -99,7 +101,8 @@ def bin_topk_int8_carry(
             raise ValueError(f"{name} must be contiguous [{size}]")
     lib = load_library("bin_topk_int8")
     _configure(lib)
-    out, partial, groups = carry_buffers(codes, batch, bins)
+    groups = ring_supertile_groups(codes.device, n, batch, bins)
+    out, partial, groups = carry_buffers(codes, batch, bins, groups)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         status = lib.bin_topk_int8_carry(

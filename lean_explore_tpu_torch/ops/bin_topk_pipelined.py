@@ -75,7 +75,7 @@ def bin_topk_pipelined_carry(
     ``MAX_BUFFERS`` (14, what a block's 227 KB of shared memory holds);
     anything else raises. ``bin_topk_pipelined_carry.launches`` counts calls
     that launch: each runs the ring kernel and, when the super-tiles are
-    split over groups (K1's ``supertile_groups``), the max over the groups'
+    split over groups (``supertile_groups``), the max over the groups'
     partial carries.
     """
     n, dim = corpus.shape

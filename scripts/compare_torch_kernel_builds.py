@@ -18,9 +18,10 @@ points on the same inputs: ``bin_topk_carry`` (bf16),
 ring stages, bf16 and the same corpus in float32) and ``windowed_scores``
 (bf16) at the serving shape (300,000 valid rows of a 300,032 x 1024
 unit-row corpus, B = 128, bins = 4096, window 8) and two small shapes,
-compared bit for bit (K1 and K3 in bf16 on wgmma in newer trees, on
-mma.sync in older ones, each build's bf16 carry launched with its own
-wrapper's super-tile groups, read from its source); ``bin_topk_carry_f32``
+compared bit for bit (K1 and K3 in bf16 and K2 on wgmma in newer trees,
+on mma.sync in older ones, each build's bf16 and int8 carries launched
+with their own wrappers' super-tile groups, read from its source);
+``bin_topk_carry_f32``
 and ``windowed_scores_f32``
 (float32: 3xTF32 on mma.sync in older trees, on wgmma with a ``q_split``
 scratch argument in newer ones, each tree's C interface read from its
@@ -42,8 +43,8 @@ within ``ops.flash_attention.kernel_tolerance`` at the serving shape (B =
 64, T = 512, 16/8 heads, DH 128, ragged lengths) and a small DH 64 shape,
 the backward's dq, dk and dv against ``attention_flash_bwd_plain`` within
 ``bwd_kernel_tolerance`` at the backward's two shapes. Then the CUDA-event
-mean of 20 launches of each build's retrieval entries, bf16 and float32, at
-the serving shape (six rounds of turns: a few percent of drift hides a 1%
+mean of 20 launches of each build's retrieval entries, bf16 and float32,
+and of its int8 carry, at the serving shape (six rounds of turns: a few percent of drift hides a 1%
 difference in fewer), and of its forwards at chip_smoke.py's serving
 shape (B 64 x T 512, its ragged and left-padded mask, then phase 4d's
 embed batch's mask) and training shape (B 32 x T 256, the backward check's
@@ -150,13 +151,22 @@ def bf16_carry_on_ring(csrc: Path) -> bool:
     return "Bf16Stage" in (csrc / "bin_topk.cu").read_text()
 
 
-def _configure(kernel: str, lib: ctypes.CDLL, split: bool = True, ring: bool = True) -> None:
+def int8_carry_on_ring(csrc: Path) -> bool:
+    """Whether a tree's int8 carry runs the wgmma kernel, whose wrapper
+    takes ``ring_supertile_groups`` (else ``supertile_groups``)."""
+    return "Int8Stage" in (csrc / "bin_topk_int8.cu").read_text()
+
+
+def _configure(kernel: str, lib: ctypes.CDLL, split: bool = True, ring: bool = True,
+               int8_ring: bool = True) -> None:
     """Sets the argument types of a library's entries; ``split`` says
-    whether its float32 retrieval entries take the ``q_split`` scratch, and
-    ``ring`` whether its bf16 carry is the wgmma kernel; both are kept on
-    the library (``f32_takes_split``, ``bf16_on_ring``)."""
+    whether its float32 retrieval entries take the ``q_split`` scratch,
+    ``ring`` whether its bf16 carry is the wgmma kernel and ``int8_ring``
+    whether its int8 carry is; all are kept on the library
+    (``f32_takes_split``, ``bf16_on_ring``, ``int8_on_ring``)."""
     lib.f32_takes_split = split
     lib.bf16_on_ring = ring
+    lib.int8_on_ring = int8_ring
     extra = [ctypes.c_void_p] if split else []
     if kernel == "bin_topk":
         fns = [lib.bin_topk_carry, lib.bin_topk_carry_f32]
@@ -248,10 +258,18 @@ def run_pipelined(lib, q, corpus, n_valid, bins) -> torch.Tensor:
 
 
 def run_bin_topk_int8(lib, q_codes, q_scales, codes, scales, n_valid, bins) -> torch.Tensor:
-    from lean_explore_tpu_torch.ops.bin_topk import carry_buffers, steal_bits_for
+    """K2's carry with the groups of the library's own wrapper."""
+    from lean_explore_tpu_torch.ops.bin_topk import (
+        carry_buffers,
+        ring_supertile_groups,
+        steal_bits_for,
+    )
 
     n, dim = codes.shape
-    out, partial, groups = carry_buffers(codes, q_codes.shape[0], bins)
+    groups = None
+    if lib.int8_on_ring:
+        groups = ring_supertile_groups(codes.device, n, q_codes.shape[0], bins)
+    out, partial, groups = carry_buffers(codes, q_codes.shape[0], bins, groups)
     status = lib.bin_topk_int8_carry(
         q_codes.data_ptr(), q_scales.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         out.data_ptr(), partial.data_ptr() if partial is not None else None,
@@ -370,8 +388,11 @@ def in_turns(builds, kernel: str, run, reps: int = 20, rounds: int = 1) -> list:
 
 
 def time_retrieval(builds) -> None:
-    """Both builds' K1 and K3 entries, bf16 and float32, at the serving
-    shape (the first of SHAPES), in RETRIEVAL_ROUNDS rounds of turns."""
+    """Both builds' K1 and K3 entries, bf16 and float32, and their K2 (the
+    bf16 inputs quantized per row), at the serving shape (the first of
+    SHAPES), in RETRIEVAL_ROUNDS rounds of turns."""
+    from lean_explore_tpu_torch.ops.quant import quantize_rows_device
+
     n, n_valid, dim, batch, bins, window = SHAPES[0]
     for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         gen = torch.Generator(device="cuda").manual_seed(n + batch)
@@ -390,6 +411,19 @@ def time_retrieval(builds) -> None:
                 "dim": dim, "batch": batch, "bins": bins, "window": window,
                 "ms_in_turns": in_turns(builds, source, run, rounds=RETRIEVAL_ROUNDS),
             }), flush=True)
+        if dtype == torch.bfloat16:
+            q8, q8_scales = quantize_rows_device(q.float())
+            c8, c8_scales = quantize_rows_device(corpus.float())
+            print(json.dumps({
+                "kernel": "bin_topk_int8", "shape": "serving", "rows": n, "n_valid": n_valid,
+                "dim": dim, "batch": batch, "bins": bins,
+                "ms_in_turns": in_turns(
+                    builds, "bin_topk_int8",
+                    lambda lib: run_bin_topk_int8(lib, q8, q8_scales, c8, c8_scales, n_valid,
+                                                  bins),
+                    rounds=RETRIEVAL_ROUNDS),
+            }), flush=True)
+            del q8, c8
         del corpus, q
 
 
@@ -548,7 +582,8 @@ def main() -> int:
               for tag, csrc in trees.items()}
     for tag, libs in builds.items():
         for kernel, (lib, _) in libs.items():
-            _configure(kernel, lib, takes_split(trees[tag]), bf16_carry_on_ring(trees[tag]))
+            _configure(kernel, lib, takes_split(trees[tag]), bf16_carry_on_ring(trees[tag]),
+                       int8_carry_on_ring(trees[tag]))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

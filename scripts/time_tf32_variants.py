@@ -65,11 +65,12 @@ NO_QUERY_COPIES = (
     "  mbar_arrive_expect_tx(full, CORPUS_BOX);\n"
     "  tma_load(stage, corpus, k0, row0, full);\n"
 )
-# The carry kernel's carry in registers where shared memory holds it (both
-# element types).
+# The carry kernel's carry in registers where shared memory holds it (every
+# element type: ring_carry.cuh).
 CARRY_IN_REGISTERS = [
-    ("bin_topk.cu", "constexpr int GROUP_THREADS = 128;", "constexpr int GROUP_THREADS = 1;", 1),
-    ("bin_topk.cu",
+    ("ring_carry.cuh", "constexpr int GROUP_THREADS = 128;", "constexpr int GROUP_THREADS = 1;",
+     1),
+    ("ring_carry.cuh",
      "  float* carry = reinterpret_cast<float*>(ring.after()) +\n"
      "                 (warp >> 2) * RING_ACC * GROUP_THREADS + (warp & 3) * 32 + lane;\n",
      "  float carry_registers[RING_ACC];\n"
@@ -88,8 +89,9 @@ VARIANTS = {
     "no_products": (False, (K1, K3), [
         ("ring_tiles.cuh", "    wgmma_tf32_rs(acc, ", "    if (false) wgmma_tf32_rs(acc, ", 3)]),
     "no_fold": (False, (K1,), [
-        ("bin_topk.cu",
-         "        fold_acc(carry, acc, (uint32_t)p, bins, s, n_valid, low_mask, warp, lane);",
+        ("ring_carry.cuh",
+         "        fold_acc<Stage>(carry, acc, (uint32_t)p, bins, s, n_valid, low_mask, rs, "
+         "query_scales,\n                        warp, lane);",
          "        for (int i = 0; i < RING_ACC; ++i) {\n"
          "          carry[i * GROUP_THREADS] += acc[i];\n"
          "          acc[i] = 0.0f;\n"
@@ -136,18 +138,20 @@ def variant_tree(out_dir: Path, edits) -> Path:
     return tree
 
 
-def build_all(out_root: Path, variants: dict | None = None) -> dict:
+def build_all(out_root: Path, variants: dict | None = None,
+              sources: tuple = ("bin_topk", "windowed_scores")) -> dict:
     """{variant: {source: (library, ptxas lines)}}, base included, one nvcc
-    per source and variant of ``variants`` (default VARIANTS), all started
-    together; each library's bf16 and f32 K1 and K3 entries configured."""
-    from compare_torch_kernel_builds import ptxas_functions
+    per source of ``sources`` and variant of ``variants`` (default
+    VARIANTS), all started together; each library's entries configured
+    (K1's and K3's bf16 and f32 ones, K2's int8 one)."""
+    from compare_torch_kernel_builds import _configure, ptxas_functions
     from lean_explore_tpu_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
 
     variants = VARIANTS if variants is None else variants
     procs = {}
     for name, edits in [("base", [])] + [(n, v[2]) for n, v in variants.items()]:
         tree = variant_tree(out_root / name, edits)
-        for source in ("bin_topk", "windowed_scores"):
+        for source in sources:
             lib = out_root / name / f"lib{source}.so"
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(tree / f"{source}.cu")]
             procs[name, source] = (lib, subprocess.Popen(
@@ -159,12 +163,8 @@ def build_all(out_root: Path, variants: dict | None = None) -> dict:
             raise RuntimeError(f"nvcc failed on variant {name} ({source}):\n{log}")
         built.setdefault(name, {})[source] = (ctypes.CDLL(str(lib)), ptxas_functions(log))
     for libs in built.values():
-        for split, suffix in ((1, "_f32"), (0, "")):
-            k1 = getattr(libs["bin_topk"][0], "bin_topk_carry" + suffix)
-            k1.argtypes = [ctypes.c_void_p] * (4 + split) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            k3 = getattr(libs["windowed_scores"][0], "windowed_scores" + suffix)
-            k3.argtypes = [ctypes.c_void_p] * (4 + split) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            k1.restype = k3.restype = ctypes.c_int
+        for source, (lib, _) in libs.items():
+            _configure(source, lib)
     return built
 
 
@@ -254,15 +254,16 @@ def serving_inputs(dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def measure(variants: dict, runners, base_error, dtype: torch.dtype, build_dir: str,
-            function_tag: str) -> int:
-    """Builds base and ``variants``, holds base to its plain twins and the
-    same-function variants to base's bits, times every build in turns at
-    the serving shape in ``dtype``, prints the ptxas lines of the kernel
-    functions whose name holds ``function_tag``; returns the exit code."""
+            function_tag: str, sources: tuple = ("bin_topk", "windowed_scores")) -> int:
+    """Builds ``sources`` as base and in ``variants``, holds base to its
+    plain twins and the same-function variants to base's bits, times every
+    build in turns at the serving shape in ``dtype``, prints the ptxas
+    lines of the kernel functions whose name holds ``function_tag``;
+    returns the exit code."""
     if not torch.cuda.is_available():
         print(f"{Path(sys.argv[0]).name}: needs a CUDA device", file=sys.stderr)
         return 2
-    built = build_all(REPO / "build" / build_dir, variants)
+    built = build_all(REPO / "build" / build_dir, variants, sources)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

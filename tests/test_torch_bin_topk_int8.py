@@ -80,6 +80,31 @@ def test_matches_quantized_exact_when_bins_cover_corpus():
     assert overlap >= 0.95  # packing may swap near-exact ties
 
 
+@pytest.mark.parametrize(
+    "n,n_valid,batch,bins",
+    [
+        # bins % 128 == 64: the CUDA kernel's last block has a warpgroup
+        # past the bins; N % 128 == 64: its last super-tile ends inside a block
+        (192 * 10 + 64, 192 * 10, 1, 192),
+        (64 * 33, 64 * 33 - 17, 37, 64),
+        (64 * 17, 1000, 200, 192),
+        # B = 129: a second query block of one; bins = 4160, a half slice of
+        # 128, and a partial final super-tile
+        (4160 * 2 + 64, 4160 + 100, 129, 4160),
+    ],
+)
+def test_kernel_edge_shapes(n, n_valid, batch, bins):
+    """The shapes at the edges of the CUDA kernel's blocks (tests/test_torch_cuda.py
+    holds the kernel to the twin there bit for bit), the twin against the
+    JAX kernel within the packing quantum; every returned row real."""
+    corpus = random_unit_rows(n, 128, seed=n)
+    queries = random_unit_rows(batch, 128, seed=n + batch)
+    corpus[n_valid:] = 0.0
+    scores, idx, _, _ = _both(corpus, queries, n_valid, 16, bins=bins, tile_rows=64)
+    assert scores.shape == (batch, 16)
+    assert idx.min() >= 0 and idx.max() < n_valid
+
+
 def test_partial_final_supertile():
     n, b, k = 2560, 3, 16
     corpus = random_unit_rows(n, 64, seed=42)

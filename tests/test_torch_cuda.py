@@ -119,6 +119,14 @@ def _int8_rows(n, d, gen, device):
         (4096 * 5, 4096 * 5, 1, 4096),  # one query, whole super-tiles
         (2048, 1500, 128, 1024),  # fewer super-tiles than groups
         (64 * 9, 64 * 9, 200, 64),  # two query blocks and a partial one
+        # bins % 128 == 64: the last block's second warpgroup lies past the
+        # bins; N % 128 == 64: the last super-tile ends inside a block
+        (192 * 10 + 64, 192 * 10, 1, 192),
+        (64 * 33, 64 * 33 - 17, 37, 64),
+        (64 * 17, 1000, 200, 192),
+        # B = 129: a second query block of one; bins = 4160, a half slice,
+        # and a partial final super-tile
+        (4160 * 3 + 64, 4160 * 2 + 100, 129, 4160),
     ],
 )
 def test_int8_carry_equals_plain(cuda, n, n_valid, batch, bins):
@@ -134,6 +142,83 @@ def test_int8_carry_equals_plain(cuda, n, n_valid, batch, bins):
     torch.cuda.synchronize()
     assert got.shape == (bins, batch)
     assert torch.equal(got, want)
+
+
+def _patched_libraries(tmp_path, names, stages, constants):
+    """{name: library} of csrc/<name>.cu for each of `names`, built from a
+    copy of csrc/ under tmp_path in which each (file, constant) of
+    `constants` is set to `stages` (as they are when stages is None)."""
+    import ctypes
+    import re
+    import shutil
+    import subprocess
+
+    from lean_explore_tpu_torch.ops.cuda_build import CSRC_DIR, NVCC_FLAGS, nvcc_path
+
+    tree = tmp_path / "csrc"
+    shutil.copytree(CSRC_DIR, tree)
+    if stages is not None:
+        for name, constant in constants:
+            source, found = re.subn(rf"constexpr int {constant} = \d+;",
+                                    f"constexpr int {constant} = {stages};",
+                                    (tree / name).read_text())
+            assert found == 1
+            (tree / name).write_text(source)
+    libs = {}
+    for name in names:
+        lib = tmp_path / f"lib{name}.so"
+        subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(tree / f"{name}.cu")],
+                       check=True, capture_output=True)
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def _int8_build(tmp_path, stages):
+    """bin_topk_int8.cu's entry, built with its ring cut to `stages` stages."""
+    import ctypes
+
+    lib = _patched_libraries(tmp_path, ["bin_topk_int8"], stages,
+                             [("bin_topk_int8.cu", "INT8_CARRY_STAGES")])["bin_topk_int8"]
+    entry = lib.bin_topk_int8_carry
+    entry.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    return entry
+
+
+@pytest.mark.parametrize("stages", [None, 2])
+def test_int8_carry_is_the_same_in_every_repeated_launch(cuda, tmp_path, stages):
+    """A fault of the int8 kernel's TMA ring changes a carry in only some
+    launches: 200 launches over one super-tile of 16,384 rows (every
+    product reaches the carry), through the wrapper as built and from a
+    copy whose ring has 2 stages, must each give the first launch's bits,
+    and the first must equal the plain twin's."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    n, dim, batch = 16384, 1024, 128
+    codes, scales = _int8_rows(n, dim, gen, cuda)
+    q_codes, q_scales = _int8_rows(batch, dim, gen, cuda)
+    if stages is None:
+        def carry():
+            return K8.bin_topk_int8_carry(q_codes, q_scales, codes, scales, n, n)
+    else:
+        entry = _int8_build(tmp_path, stages)
+        steal = K.steal_bits_for(n, n)
+
+        def carry():
+            out, partial, groups = K.carry_buffers(
+                codes, batch, n, K.ring_supertile_groups(cuda, n, batch, n))
+            assert entry(q_codes.data_ptr(), q_scales.data_ptr(), codes.data_ptr(),
+                         scales.data_ptr(), out.data_ptr(),
+                         partial.data_ptr() if partial is not None else None, batch, n, dim,
+                         n, n, steal, groups, torch.cuda.current_stream().cuda_stream) == 0
+            return out
+
+    first = carry().view(torch.int32)
+    want = K8.bin_topk_int8_carry_plain(
+        q_codes, q_scales, codes, scales, n, n, K.steal_bits_for(n, n))
+    torch.cuda.synchronize()
+    assert torch.equal(first, want.view(torch.int32))
+    differing = sum(int(not torch.equal(carry().view(torch.int32), first)) for _ in range(200))
+    assert differing == 0
 
 
 def test_int8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -296,30 +381,11 @@ def _ring_build(tmp_path, stages, dtype):
     from a copy of csrc/ under tmp_path; (carry entry, windowed entry) of
     `dtype`."""
     import ctypes
-    import re
-    import shutil
-    import subprocess
 
-    from lean_explore_tpu_torch.ops.cuda_build import CSRC_DIR, NVCC_FLAGS, nvcc_path
-
-    tree = tmp_path / "csrc"
-    shutil.copytree(CSRC_DIR, tree)
-    if stages is not None:
-        for name, constant in (("bin_topk.cu", "CARRY_STAGES"),
-                               ("windowed_scores.cu", "WINDOW_STAGES"),
-                               ("bin_topk.cu", "BF16_CARRY_STAGES"),
-                               ("windowed_scores.cu", "BF16_WINDOW_STAGES")):
-            source, found = re.subn(rf"constexpr int {constant} = \d+;",
-                                    f"constexpr int {constant} = {stages};",
-                                    (tree / name).read_text())
-            assert found == 1
-            (tree / name).write_text(source)
-    libs = {}
-    for name in ("bin_topk", "windowed_scores"):
-        lib = tmp_path / f"lib{name}.so"
-        subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(tree / f"{name}.cu")],
-                       check=True, capture_output=True)
-        libs[name] = ctypes.CDLL(str(lib))
+    libs = _patched_libraries(
+        tmp_path, ["bin_topk", "windowed_scores"], stages,
+        [("bin_topk.cu", "CARRY_STAGES"), ("windowed_scores.cu", "WINDOW_STAGES"),
+         ("bin_topk.cu", "BF16_CARRY_STAGES"), ("windowed_scores.cu", "BF16_WINDOW_STAGES")])
     suffix = "_f32" if dtype == torch.float32 else ""
     split = 1 if dtype == torch.float32 else 0  # the f32 entries take q_split
     carry = getattr(libs["bin_topk"], "bin_topk_carry" + suffix)
