@@ -43,7 +43,9 @@ Phases, each announced before it starts and timed after it ends:
    LEAN_EXPLORE_FLASH_ATTENTION=1, on the phase-4 clients, then
    ``embed_sync`` of 64 long documents on a float32 copy of the embedder;
    4e. ``DenseIndex.search`` over the phase-4 corpus held in float32 on
-   the card, with the default method and the windowed one.
+   the card, with the default method and the windowed one;
+   phase 3 also holds bin_topk over a float32 corpus at phase 6's shape
+   (200,000 x 384, B = 64, k = 1000) against its plain twin.
 5. drive training at the Qwen3-0.6B geometry with
    LEAN_EXPLORE_FLASH_ATTENTION=1: a random f32 checkpoint written by the
    port's ``export_hf_checkpoint`` and a 2,000-declaration store of
@@ -55,8 +57,19 @@ Phases, each announced before it starts and timed after it ends:
    cross-encoder steps in bf16 at max_length 256 (their pairs/s on a line
    of its own). Every step launches K5's
    forward, dq and dk/dv once per layer each, and no other kernel.
+6. build the index of the committed 200k chain through the port and
+   evaluate it: ``make_corpus`` at the chain's arguments, a
+   ``DeclarationStore`` in a temporary directory, ``generate_embeddings``
+   with a float32 ``EmbeddingClient`` on runs/scale200k/embedder/checkpoint,
+   ``build_indices``, ``load_index_artifacts`` with a float32 corpus on the
+   card, a ``SearchEngine`` with the float32 reranker on
+   runs/scale200k/reranker/checkpoint and ``evaluate_engine`` over the 512
+   eval queries at rerank_top 50 (K1-f32 once a batch of 64); recall@1,
+   recall@10 and MRR@10 must lie within 2 queries (0.004 for MRR) of the
+   committed JAX numbers (runs/scale200k/cascade_eval.json, full_pipeline,
+   a TPU run). A missing checkpoint fails the phase.
 Every kernel's launch count is set to 0 just before each path of phases
-3b, 4 and 5 is driven and read just after it.
+3b, 4, 5 and 6 is driven and read just after it.
 
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure raises, so the run exits non-zero with its
@@ -302,6 +315,56 @@ def check_bin_topk(device, dtype=torch.bfloat16) -> dict:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": library_ms,
+    }
+
+
+# K1-f32 at the shape phase 6's quality eval gives it: the 200k chain's
+# 200,000 rows of the embedder's width 384 in float32 (padded to 200,192),
+# evaluate_engine's batch of 64 queries, k = 1000, the serving bins.
+EVAL_N_REAL, EVAL_DIM, EVAL_BATCH = 200_000, 384, 64
+
+
+def check_bin_topk_eval_shape(device) -> dict:
+    """K1-f32 against its plain twin at phase 6's shape, with the f32
+    tolerance of the serving cases and planted exact matches (one
+    mid-corpus, one in the partial final super-tile) ranked first; the
+    carry timed beside the twin. Returns the keys the bin_topk_f32 row
+    takes."""
+    from lean_explore_tpu_torch.ops import bin_topk as K
+    from lean_explore_tpu_torch.ops.dense import serving_bins
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    n_real, dim, batch, k = EVAL_N_REAL, EVAL_DIM, EVAL_BATCH, BIN_K
+    n_pad = -(-n_real // 512) * 512
+    corpus = torch.zeros(n_pad, dim, dtype=torch.float32, device=device)
+    corpus[:n_real] = _unit_rows(n_real, dim, gen, device, torch.float32)
+    q = _unit_rows(batch, dim, gen, device, torch.float32)
+    planted = (76_543, n_real - 5)
+    q[0], q[1] = corpus[planted[0]], corpus[planted[1]]
+    bins = serving_bins(batch, n_pad)
+    err = _check_bin_topk_case("quality-eval shape", q, corpus, n_real, k, bins)
+    _, rows = K.bin_topk(q, corpus, n_real, k=k, bins=bins)
+    if (int(rows[0, 0]), int(rows[1, 0])) != planted:
+        raise AssertionError("quality-eval shape: planted exact matches were not ranked first")
+    ms = cuda_ms(lambda: K.bin_topk_carry(q, corpus, n_real, bins), 20)
+    steal = K.steal_bits_for(n_pad, bins)
+    plain_ms = cuda_ms(lambda: K.bin_topk_carry_plain(q, corpus, n_real, bins, steal), 3)
+    library_ms = cuda_ms(lambda: torch.topk(q @ corpus[:n_real].T, k, dim=1), 20)
+    bytes_moved = (n_real * dim + batch * dim) * 4 + bins * batch * 4
+    b_ms, b_by = bound_ms(bytes_moved, 2.0 * n_real * batch * dim, TF32_FLOP_PER_S)
+    log(
+        f"  bin_topk_f32 at the quality-eval shape (N={n_real} D={dim} B={batch} "
+        f"bins={bins}): carry kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library torch.topk(q @ corpus.T) {library_ms:.4f} ms, bound {b_ms:.4f} "
+        f"ms by {b_by}"
+    )
+    return {
+        "eval_shape": [n_real, dim, batch, k, bins],
+        "eval_shape_max_abs_err": err,
+        "eval_shape_ms": ms,
+        "eval_shape_plain_ms": plain_ms,
+        "eval_shape_bound_ms": b_ms,
+        "eval_shape_library_ms": library_ms,
     }
 
 
@@ -1231,6 +1294,9 @@ def main() -> int:
             *check_flash_backward(device, torch.float32),
             *check_flash_backward(device),
         ]
+        f32_row = next(k for k in kernels if k["name"] == "bin_topk_f32")
+        f32_row.update(check_bin_topk_eval_shape(device))
+        f32_row["max_abs_err"] = max(f32_row["max_abs_err"], f32_row["eval_shape_max_abs_err"])
         torch.cuda.empty_cache()
 
     with Phase("3b. bin_topk_pipelined through its entry point at the serving shape"):
@@ -1241,6 +1307,8 @@ def main() -> int:
             run_service(device, kernels, card)
         with Phase("5. training at full width"):
             run_training(device, kernels, card)
+        with Phase("6. index build and quality at the 200k chain"):
+            run_quality_chain(device, kernels, card, repo)
 
     log(json.dumps({"kernels": kernels}))
     log(
@@ -2187,6 +2255,175 @@ def run_training(device, kernels, card) -> None:
     for forbidden in ("jax", "lean_explore_tpu"):
         if forbidden in sys.modules:
             raise AssertionError(f"{forbidden} was imported on the training path")
+
+
+# ----------------------------------------------------------------------
+# Phase 6: index build and quality at the 200k chain
+# ----------------------------------------------------------------------
+
+# The committed chain (runs/scale200k): its corpus (runs/scale200k/*/eval.json,
+# "task"), its serving lengths (embedder 128, reranker 192: docs/training.md
+# "Config-5 scale", runs/scale200k/trunc_probe.json) and its full-pipeline
+# quality from the JAX package on a TPU (runs/scale200k/cascade_eval.json,
+# pinned by tests/test_torch_evaluation.py).
+CHAIN_DIR = Path("runs") / "scale200k"
+CHAIN_CORPUS = dict(n_decls=200_000, n_concepts=6000, n_eval=512, seed=0, body_sentences=5)
+CHAIN_EMB_MAX_LENGTH, CHAIN_RR_MAX_LENGTH, CHAIN_RERANK_TOP = 128, 192, 50
+CHAIN_REFERENCE = {"recall_at_1": 0.9688, "recall_at_10": 0.9883, "mrr_at_10": 0.9785}
+CHAIN_QUERY_SLACK, CHAIN_MRR_SLACK = 2, 0.004
+
+
+def chain_checkpoints(repo: Path) -> tuple[Path, Path]:
+    """The chain's committed embedder and reranker directories; raises when
+    either is incomplete (no random stand-in)."""
+    dirs = tuple(repo / CHAIN_DIR / m / "checkpoint" for m in ("embedder", "reranker"))
+    for d in dirs:
+        for name in ("config.json", "model.safetensors", "tokenizer.json"):
+            if not (d / name).is_file():
+                raise FileNotFoundError(f"phase 6 needs the committed checkpoint file {d / name}")
+    return dirs
+
+
+def tree_bytes(root: Path) -> int:
+    """Bytes of the files under ``root`` (the copy this run works from),
+    the kernels' build directory left out."""
+    total = 0
+    for dirpath, dirnames, filenames in os.walk(root):
+        if Path(dirpath) == root:
+            dirnames[:] = [d for d in dirnames if d not in (".git", "build")]
+        total += sum(os.path.getsize(os.path.join(dirpath, f)) for f in filenames)
+    return total
+
+
+def load_script(repo: Path, name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, repo / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SPLIT_DOCS = 20_000
+
+
+def embed_split(embedder, corpus, seconds: dict, card: str) -> None:
+    """Where the embedding stage's time goes, from its first SPLIT_DOCS
+    documents in the stage's batches: the host tokenizer alone
+    (``encode_batch``), then ``embed_sync`` (tokenizer, trunk and copy
+    back); the rest of the stage, scaled to its documents, is the store's
+    reads and writes."""
+    from lean_explore_tpu_torch.models.tokenizer import encode_batch
+
+    docs = [d.informalization for d in corpus.declarations[:SPLIT_DOCS]]
+    batch = embedder.batch_size
+    t = time.perf_counter()
+    for start in range(0, len(docs), batch):
+        encode_batch(embedder.tokenizer, docs[start : start + batch],
+                     max_length=embedder.max_length, append_eos=True)
+    tok_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for start in range(0, len(docs), batch):
+        embedder.embed_sync(docs[start : start + batch])
+    embed_s = time.perf_counter() - t
+    scale = len(corpus.declarations) / len(docs)
+    store_s = seconds["embed"] - embed_s * scale
+    log(
+        f"  embedding stage split over {len(docs)} docs: tokenizer "
+        f"{len(docs) / tok_s:.1f} docs/s ({tok_s * scale:.1f} s of the stage), "
+        f"trunk and copy {(embed_s - tok_s) * scale:.1f} s, store reads and "
+        f"writes {store_s:.1f} s, of {seconds['embed']:.1f} s; {card}"
+    )
+    seconds.update(split_tokenizer=tok_s * scale, split_trunk=(embed_s - tok_s) * scale,
+                   split_store=store_s)
+
+
+def run_quality_chain(device, kernels, card, repo: Path) -> None:
+    """Phase 6 through scripts/eval_torch_quality.py's stages: build the
+    chain's index on the card, then evaluate it with every launch count set
+    to 0 before and read after; K1-f32 must launch once per batch of 64."""
+    from lean_explore_tpu_torch.evaluation import evaluate_engine
+    from lean_explore_tpu_torch.train.synthetic import make_corpus
+    from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+    from lean_explore_tpu_torch.util.reranker_client import RerankerClient
+
+    log(card)
+    embedder_dir, reranker_dir = chain_checkpoints(repo)
+    ckpt_bytes = sum(
+        f.stat().st_size for d in (embedder_dir, reranker_dir) for f in d.iterdir()
+    )
+    log(
+        f"  checkpoints {ckpt_bytes / 1e6:.1f} MB; this copy of the repo "
+        f"{tree_bytes(repo) / 1e6:.1f} MB"
+    )
+    script = load_script(repo, "eval_torch_quality")
+    t = time.perf_counter()
+    corpus = make_corpus(**CHAIN_CORPUS)
+    log(f"  make_corpus {CHAIN_CORPUS} in {time.perf_counter() - t:.1f} s")
+    embedder = EmbeddingClient(
+        str(embedder_dir), max_length=CHAIN_EMB_MAX_LENGTH,
+        batch_size=script.EMBED_BATCH, dtype=torch.float32, device=device,
+    )
+    reranker = RerankerClient(
+        str(reranker_dir), max_length=CHAIN_RR_MAX_LENGTH, dtype=torch.float32,
+        device=device,
+    )
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp:
+        store, seconds = script.build_index(corpus, embedder, Path(tmp))
+        log(
+            f"  store {seconds['store']:.1f} s; embedding stage "
+            f"{seconds['embed_docs_per_s']:.1f} docs/s ({len(corpus.declarations)} "
+            f"docs in {seconds['embed']:.1f} s, f32, max_length "
+            f"{CHAIN_EMB_MAX_LENGTH}); artifact build (build_indices) "
+            f"{seconds['build']:.1f} s; {card}"
+        )
+        embed_split(embedder, corpus, seconds, card)
+        engine, load_s = script.open_engine(Path(tmp), store, embedder, reranker, device)
+        dense = engine._artifacts.dense
+        if dense.embeddings.dtype != torch.float32 or dense.device.type != "cuda":
+            raise AssertionError(f"the eval corpus is {dense.embeddings.dtype} on {dense.device}")
+        log(f"  load_index_artifacts {tuple(dense.embeddings.shape)} float32 on the card in {load_s:.1f} s")
+        batches = -(-len(corpus.eval_queries) // 64)
+        with CountLaunches() as launched:
+            t = time.perf_counter()
+            metrics = evaluate_engine(engine, corpus.eval_queries, rerank_top=CHAIN_RERANK_TOP)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t
+        store.close()
+    expect_launches("quality eval", launched.counts, "bin_topk", batches)
+    n = metrics["n_queries"]
+    if n != CHAIN_CORPUS["n_eval"]:
+        raise AssertionError(f"quality eval ran {n} queries")
+    lines, misses = [], []
+    for key, want in CHAIN_REFERENCE.items():
+        got = metrics[key]
+        if key.startswith("recall"):
+            diff = round(got * n) - round(want * n)
+            lines.append(f"{key} {got:.4f} (JAX {want:.4f}, {diff:+d} queries)")
+            if abs(diff) > CHAIN_QUERY_SLACK:
+                misses.append(key)
+        else:
+            lines.append(f"{key} {got:.4f} (JAX {want:.4f}, {got - want:+.4f})")
+            if abs(got - want) > CHAIN_MRR_SLACK + 1e-9:
+                misses.append(key)
+    log(
+        f"  quality over {n} queries at rerank_top {CHAIN_RERANK_TOP}: "
+        f"{'; '.join(lines)}; eval {eval_s:.1f} s; K1-f32 launches "
+        f"{launched.counts['bin_topk']} ({batches} batches); {card}"
+    )
+    log("  " + json.dumps({"quality_chain": metrics, "seconds": {
+        **{k: round(v, 3) for k, v in seconds.items()}, "load": round(load_s, 3),
+        "eval": round(eval_s, 3)}, "launches": launched.counts}))
+    by_name = {k["name"]: k for k in kernels}
+    by_name["bin_topk_f32"]["quality_eval_launches"] = launched.counts["bin_topk"]
+    if misses:
+        raise AssertionError(
+            f"quality eval: {misses} beyond {CHAIN_QUERY_SLACK} queries (MRR "
+            f"{CHAIN_MRR_SLACK}) of the committed JAX numbers"
+        )
+    for forbidden in ("jax", "lean_explore_tpu"):
+        if forbidden in sys.modules:
+            raise AssertionError(f"{forbidden} was imported on the index-build path")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Index artifact set: the in-memory handle, the BM25 name-index build and
-the loader the serving path needs (lean_explore_tpu/index/artifacts.py).
+"""Index artifact set: build, load and the in-memory handle
+(lean_explore_tpu/index/artifacts.py).
 
 The files are the JAX package's, unchanged (MANIFEST_SCHEMA 1):
 
@@ -11,20 +11,27 @@ The files are the JAX package's, unchanged (MANIFEST_SCHEMA 1):
     bm25_ids.npy             shared BM25 row -> declaration id
     manifest.json            schema/version/counts/dims
 
-Building the artifacts from a store is a later slice.
+The BM25 indices cover every declaration; the dense index only the rows
+with embeddings. Either package loads what the other builds.
 """
 
 import json
+import logging
+import time
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from lean_explore_tpu_torch.config import REQUIRED_INDEX_FILES
 from lean_explore_tpu_torch.index import dense as dense_mod
 from lean_explore_tpu_torch.index.bm25 import Bm25Index, Bm25Params
 from lean_explore_tpu_torch.index.dense import DenseIndex
+from lean_explore_tpu_torch.models.store import DeclarationStore
 from lean_explore_tpu_torch.search.tokenization import tokenize_raw, tokenize_spaced
+
+logger = logging.getLogger(__name__)
 
 MANIFEST_SCHEMA = 1
 
@@ -53,6 +60,75 @@ def build_bm25_name_indices(
     corpus_spaced = [sorted(set(tokenize_spaced(n))) for n in names]
     corpus_raw = [sorted(set(tokenize_raw(n))) for n in names]
     return Bm25Index.build(corpus_spaced, params), Bm25Index.build(corpus_raw, params)
+
+
+def build_index_artifacts(
+    store: DeclarationStore,
+    output_directory: str | Path,
+    *,
+    embedding_dim: int | None = None,
+) -> dict:
+    """Build every index artifact from a populated declaration store.
+
+    The store's own db file must already live at (or be copied to)
+    output_directory/declarations.db by the caller (extract.index does).
+
+    Returns:
+        The manifest dict.
+    """
+    output_directory = Path(output_directory)
+    output_directory.mkdir(parents=True, exist_ok=True)
+
+    all_ids: list[int] = []
+    all_names: list[str] = []
+    emb_ids: list[int] = []
+    emb_rows: list[np.ndarray] = []
+    for decl in store.iter_all():
+        all_ids.append(decl.id)
+        all_names.append(decl.name or "")
+        if decl.informalization_embedding is not None:
+            emb_ids.append(decl.id)
+            emb_rows.append(
+                np.asarray(decl.informalization_embedding, dtype=np.float32)
+            )
+    logger.info(
+        "Building index artifacts: %d declarations, %d embedded",
+        len(all_ids),
+        len(emb_ids),
+    )
+
+    bm25_spaced, bm25_raw = build_bm25_name_indices(all_names)
+    bm25_spaced.save(output_directory / BM25_SPACED_FILE)
+    bm25_raw.save(output_directory / BM25_RAW_FILE)
+    np.save(output_directory / BM25_IDS_FILE, np.asarray(all_ids, dtype=np.int64))
+
+    if emb_rows:
+        matrix = np.stack(emb_rows)
+        dim = matrix.shape[1]
+    else:
+        dim = embedding_dim or 0
+        matrix = np.zeros((0, dim), dtype=np.float32)
+    # Normalized on the host: an offline build needs no device round trip
+    # (the serving dtype and padding are load-time choices).
+    norms = np.linalg.norm(matrix, axis=1, keepdims=True)
+    normalized = (matrix / np.maximum(norms, 1e-12)).astype(np.float32)
+    np.save(output_directory / dense_mod.EMBEDDINGS_FILE, normalized)
+    np.save(
+        output_directory / dense_mod.IDS_FILE, np.asarray(emb_ids, dtype=np.int64)
+    )
+
+    manifest = {
+        "schema": MANIFEST_SCHEMA,
+        "created_unix": int(time.time()),
+        "n_declarations": len(all_ids),
+        "n_embedded": len(emb_ids),
+        "embedding_dim": dim,
+        "bm25_method": bm25_spaced.params.method,
+        "files": REQUIRED_INDEX_FILES,
+    }
+    (output_directory / MANIFEST_FILE).write_text(json.dumps(manifest, indent=2))
+    logger.info("Index artifacts written to %s", output_directory)
+    return manifest
 
 
 def load_index_artifacts(

@@ -142,6 +142,15 @@ class DenseIndex:
         )
         return cls(tensor, ids, normalized=True)
 
+    def save(self, directory: str | Path) -> None:
+        """Write the artifact pair: always float32 on disk, the first ``n``
+        rows only (an int8 index dequantizes its codes by their row
+        scales); the serving dtype is a load-time choice."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        np.save(directory / EMBEDDINGS_FILE, self.row_embeddings())
+        np.save(directory / IDS_FILE, self.ids)
+
     def row_embeddings(self) -> np.ndarray:
         """Host copy of the unpadded matrix in float32 (int8 dequantizes)."""
         mat = self.embeddings.to(torch.float32)

@@ -38,7 +38,9 @@ def _split_char(delimiter: str):
     return split
 
 
-def _pre_tokenizer(spec: dict | None):
+def pre_tokenizer(spec: dict | None):
+    """The pre-tokenizer a ``tokenizer.json`` spec names, as a function
+    from a list of text pieces to the list of words."""
     if spec is None:
         return lambda pieces: pieces
     kind = spec.get("type")
@@ -47,7 +49,7 @@ def _pre_tokenizer(spec: dict | None):
     if kind == "CharDelimiterSplit":
         return _split_char(spec["delimiter"])
     if kind == "Sequence":
-        steps = [_pre_tokenizer(s) for s in spec["pretokenizers"]]
+        steps = [pre_tokenizer(s) for s in spec["pretokenizers"]]
 
         def run(pieces: list[str]) -> list[str]:
             for step in steps:
@@ -85,7 +87,7 @@ class WordLevelTokenizer:
             raise ValueError("tokenizer normalizers are not supported")
         self.vocab: dict[str, int] = dict(model["vocab"])
         self._decoder = spec.get("decoder")
-        self._pre = _pre_tokenizer(spec.get("pre_tokenizer"))
+        self._pre = pre_tokenizer(spec.get("pre_tokenizer"))
         unk_token = unk_token or model.get("unk_token")
         self.unk_token_id = self.vocab.get(unk_token) if unk_token else None
         self.pad_token_id = self.vocab.get(pad_token) if pad_token else None
@@ -108,7 +110,7 @@ class WordLevelTokenizer:
 
     @classmethod
     def from_file(cls, path: str | Path, **special_tokens) -> "WordLevelTokenizer":
-        with open(path) as f:
+        with open(path, encoding="utf-8") as f:
             return cls(json.load(f), **special_tokens)
 
     def _word_id(self, word: str) -> int:
@@ -183,6 +185,21 @@ def load_tokenizer(model_dir: str | Path) -> WordLevelTokenizer:
             if isinstance(value, str):
                 special[key] = value
     return WordLevelTokenizer.from_file(path, **special)
+
+
+def unk_fraction(tokenizer, texts: list[str], max_texts: int = 64) -> float:
+    """Fraction of <unk> tokens when ``tokenizer`` encodes a text sample
+    (lean_explore_tpu/models/tokenizer.py ``unk_fraction``): the guard
+    against evaluating a corpus whose words a WordLevel vocabulary has
+    never seen. 0.0 when the tokenizer has no unk id."""
+    unk_id = getattr(tokenizer, "unk_token_id", None)
+    if unk_id is None or not texts:
+        return 0.0
+    rows = tokenizer(list(texts[:max_texts]))["input_ids"]
+    total = sum(len(r) for r in rows)
+    if not total:
+        return 0.0
+    return sum(1 for r in rows for t in r if t == unk_id) / total
 
 
 def bucket_length(n: int, max_length: int, buckets=LENGTH_BUCKETS) -> int:

@@ -317,6 +317,9 @@ def test_dense_index_windowed_search_takes_the_kernel(cuda):
         # and the last super-tile's 64 rows end inside the first block
         (192 * 10 + 64, 192 * 10, 1, 192, 96),
         (4096 * 2 + 2048 + 64, 4096 * 2 + 2000, 200, 4096, 32),
+        # the quality eval's shape: the 200k chain's float32 corpus of width
+        # 384 padded to 512 rows, evaluate_engine's batch of 64 queries
+        (200_192, 200_000, 64, 4096, 384),
     ],
 )
 def test_f32_carry_matches_plain(cuda, n, n_valid, batch, bins, dim):

@@ -9,8 +9,12 @@ attention (``forward_hidden(flash=True)`` at T = 256, the kernel's plain
 twin on the CPU), one InfoNCE train step of ``lean_explore_tpu_torch.train``
 with the documents on flash attention (forward and backward twins) and an
 HF export of the trained params, a top-k through the pipelined bin-max
-entry (``ops.bin_topk_pipelined``, K1's plain twin on the CPU), and then
-reports which of the forbidden modules are in ``sys.modules``.
+entry (``ops.bin_topk_pipelined``, K1's plain twin on the CPU), the index
+build (a synthetic corpus and its WordLevel tokenizer, ``DenseIndex.save``,
+the extract CLI's ``--embed --index --use-latest`` on the exported
+checkpoint, ``evaluate_engine``) and ``scripts/eval_torch_quality.py`` at a
+tiny size, and then reports which of the forbidden modules are in
+``sys.modules``.
 """
 
 import json
@@ -21,7 +25,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = (
     "jax", "optax", "orbax", "lean_explore_tpu", "transformers", "tokenizers",
-    "pydantic", "safetensors",
+    "pydantic", "safetensors", "click",
 )
 
 SCRIPT = r"""
@@ -113,6 +117,56 @@ k4_scores, k4_rows = bin_topk_pipelined(
     k=4, bins=256, tile_rows=256,
 )
 assert k4_rows[:, 0].tolist() == [0, 1], k4_rows
+
+import importlib.util, os
+from pathlib import Path
+from lean_explore_tpu_torch.config import Config, is_complete_index
+from lean_explore_tpu_torch.evaluation import evaluate_engine, guard_store_vocab
+from lean_explore_tpu_torch.extract import __main__ as extract_cli
+from lean_explore_tpu_torch.train import synthetic
+windowed.save(f"{tmp}/saved")
+tok_spec = {"model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"},
+            "pre_tokenizer": {"type": "Whitespace"}}
+Path(f"{tmp}/export/tokenizer.json").write_text(json.dumps(tok_spec))
+Path(f"{tmp}/export/tokenizer_config.json").write_text(json.dumps(
+    {"pad_token": "<pad>", "eos_token": "<eos>", "unk_token": "<unk>"}))
+extraction = Path(f"{tmp}/data/20260101_000000")
+extraction.mkdir(parents=True)
+with DeclarationStore(extraction / "declarations.db", create=True) as s:
+    s.insert_many([
+        Declaration(id=i + 1, name=n, module="M", source_text=n, source_link="l",
+                    informalization=f"nat add {words[i % 5]} {words[i // 5]}")
+        for i, n in enumerate(names)
+    ])
+Config.DATA_DIRECTORY, Config.CACHE_DIRECTORY = Path(f"{tmp}/data"), Path(f"{tmp}/cache")
+Config.EMBEDDING_MODEL_NAME, Config.EMBEDDING_MAX_LENGTH = f"{tmp}/export", 32
+os.environ["JAX_PLATFORMS"] = "cpu"
+assert extract_cli.main(["--embed", "--index", "--use-latest"]) == 0
+assert is_complete_index(extraction)
+built = SearchEngine(extraction, embedding_client=embedder, reranker_client=reranker,
+                     dense_dtype="float32", device="cpu")
+guard_store_vocab(built.store, tokenizer)
+metrics = evaluate_engine(built, [("nat add", names[0])], rerank_top=5)
+assert metrics["n_queries"] == 1, metrics
+
+corpus = synthetic.make_corpus(n_decls=40, n_concepts=20, n_eval=4)
+model_dir = Path(f"{tmp}/synthetic_model")
+synthetic.build_wordlevel_tokenizer(corpus.texts(), model_dir)
+syn_vocab = json.loads((model_dir / "tokenizer.json").read_text())["model"]["vocab"]
+syn_config = qwen3.Qwen3Config(
+    vocab_size=len(syn_vocab), hidden_size=32, num_hidden_layers=1,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=8, intermediate_size=64,
+)
+export_hf_checkpoint(qwen3.init_params(syn_config, gen, device="cpu"), syn_config, model_dir)
+spec = importlib.util.spec_from_file_location("eval_torch_quality", "scripts/eval_torch_quality.py")
+script = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(script)
+report = script.main([
+    "--embedder", str(model_dir), "--reranker", str(model_dir), "--n-decls", "40",
+    "--n-concepts", "20", "--n-eval", "4", "--emb-max-length", "32",
+    "--rr-max-length", "64", "--rerank-top", "5", "--device", "cpu",
+])
+assert report["results"]["full_pipeline"]["n_queries"] == 4, report
 print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
 """
 
