@@ -13,8 +13,10 @@ Phases, each announced before it starts and timed after it ends:
    bf16 and a float32 corpus (the float32 kernels, 3xTF32 on wgmma, also
    logged beside the floor of their three products at the TF32 peak),
    bin_topk_pipelined over the same inputs
-   (its carry equal to bin_topk's kernel carry bit for bit, for 2, 3 and 4
-   ring stages, and timed beside it), bin_topk_int8 (bit for bit against
+   (its carry equal to bin_topk's kernel carry bit for bit at every ring
+   depth it takes, 2-5 stages bf16 and 2-3 float32, in each of 200
+   repeated launches at the shortest and the deepest ring, and timed at
+   each depth beside it), bin_topk_int8 (bit for bit against
    its twin, also at bins = 4160 and B = 129, and in each of 200 repeated
    launches against the first), windowed_scores over a bf16
    and a float32 corpus, and flash_attention over bf16 and float32 inputs
@@ -372,8 +374,7 @@ def check_bin_topk_eval_shape(device) -> dict:
 # Phase 3: K4 (bin_topk_pipelined) against K1's kernel and the plain version
 # ----------------------------------------------------------------------
 
-PIPELINE_BUFFERS = (2, 3, 4)
-# Launches of K4 at 2 stages per shape in the repeated check: a fault of the
+# Launches of K4 per shape and depth in the repeated check: a fault of the
 # ring's protocol may change a carry in only some launches (without the
 # consumers' proxy fence it did; scripts/stress_torch_pipelined.py counts
 # them).
@@ -382,19 +383,22 @@ PIPELINE_REPEATS = 200
 
 def check_bin_topk_pipelined(device, dtype=torch.bfloat16) -> dict:
     """K4's carry equals K1's kernel carry bit for bit at K1's four cases
-    (for 2, 3 and 4 ring stages) and passes K1's tolerance check against
-    the plain twin, and in each of PIPELINE_REPEATS launches at 2 stages at
-    the serving shape and at one super-tile; at the JAX TPU test's case (8192 x 256, B = 16,
-    n_valid = 8000, k = 64, bins = 2048) its scores and rows equal K1's.
-    Then times it at the serving shape beside K1 (K1, K4 by stages, K1),
-    the twin and the library call, and checks that its wrapper counted
-    every call of this check."""
+    at every ring depth the dtype takes (2 to MAX_BUFFERS[dtype]) and
+    passes K1's tolerance check against the plain twin, and in each of
+    PIPELINE_REPEATS launches at the shortest and at the deepest ring, at
+    the serving shape and at one super-tile; at the JAX TPU test's case
+    (8192 x 256, B = 16, n_valid = 8000, k = 64, bins = 2048) its scores and
+    rows equal K1's. Then times it at the serving shape beside K1 (K1, K4
+    at each depth, K1), the twin and the library call, and checks that its
+    wrapper counted every call of this check."""
     from lean_explore_tpu_torch.ops import bin_topk as K
     from lean_explore_tpu_torch.ops import bin_topk_pipelined as K4
 
     f32 = dtype == torch.float32
     name = "bin_topk_pipelined_f32" if f32 else "bin_topk_pipelined"
     n_real, dim, batch, k, bins = BIN_N_REAL, BIN_DIM, BIN_BATCH, BIN_K, BIN_BINS
+    depths = tuple(range(K4.MIN_BUFFERS, K4.MAX_BUFFERS[dtype] + 1))
+    ends = (depths[0], depths[-1])
     wrapper = K4.bin_topk_pipelined_carry
     wrapper.launches = 0
     calls = 0
@@ -403,7 +407,7 @@ def check_bin_topk_pipelined(device, dtype=torch.bfloat16) -> dict:
     err = 0.0
     for case, cq, ccorpus, n_valid in cases:
         want = K.bin_topk_carry(cq, ccorpus, n_valid, bins)
-        for n_buffers in PIPELINE_BUFFERS:
+        for n_buffers in depths:
             got = wrapper(cq, ccorpus, n_valid, bins, n_buffers)
             calls += 1
             if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
@@ -417,27 +421,29 @@ def check_bin_topk_pipelined(device, dtype=torch.bfloat16) -> dict:
             _check_bin_topk_case(f"{name} {case}", cq, ccorpus, n_valid, k, bins, wrapper),
         )
         calls += 1
-    log(f"  {name}: carry == K1's kernel carry bit for bit at the 4 cases, "
-        f"n_buffers {PIPELINE_BUFFERS}")
+    log(f"  {name}: carry == K1's kernel carry bit for bit (0 words differ) at "
+        f"the 4 cases, n_buffers {depths}")
     # The serving shape, and its first 65,536 rows as one super-tile (bins =
-    # rows, so every product reaches the carry), at the shortest ring.
+    # rows, so every product reaches the carry), at the shortest and the
+    # deepest ring.
     repeats = (("serving shape", corpus, n_real, bins),
                ("one super-tile", corpus[:65_536], 65_536, 65_536))
     for case, ccorpus, n_valid, cbins in repeats:
         want = K.bin_topk_carry(q, ccorpus, n_valid, cbins).view(torch.int32)
-        differing = 0
-        for _ in range(PIPELINE_REPEATS):
-            got = wrapper(q, ccorpus, n_valid, cbins, PIPELINE_BUFFERS[0])
-            calls += 1
-            differing += int(not torch.equal(got.view(torch.int32), want))
-        if differing:
-            raise AssertionError(
-                f"{name} {case}, n_buffers={PIPELINE_BUFFERS[0]}: {differing} of "
-                f"{PIPELINE_REPEATS} launches differ from K1's kernel carry"
-            )
+        for n_buffers in ends:
+            differing = 0
+            for _ in range(PIPELINE_REPEATS):
+                got = wrapper(q, ccorpus, n_valid, cbins, n_buffers)
+                calls += 1
+                differing += int(not torch.equal(got.view(torch.int32), want))
+            if differing:
+                raise AssertionError(
+                    f"{name} {case}, n_buffers={n_buffers}: {differing} of "
+                    f"{PIPELINE_REPEATS} launches differ from K1's kernel carry"
+                )
     log(f"  {name}: {PIPELINE_REPEATS} launches each at the serving shape and at "
-        f"one super-tile of 65,536 rows, n_buffers={PIPELINE_BUFFERS[0]}: every "
-        f"carry == K1's")
+        f"one super-tile of 65,536 rows, n_buffers {ends}: every carry == K1's "
+        f"(0 launches differ)")
 
     gen = torch.Generator(device=device).manual_seed(40 if f32 else 10)
     small = _unit_rows(8192, 256, gen, device, dtype)
@@ -454,7 +460,7 @@ def check_bin_topk_pipelined(device, dtype=torch.bfloat16) -> dict:
     carry_k1 = lambda: K.bin_topk_carry(q, corpus, n_real, bins)  # noqa: E731
     k1_before = cuda_ms(carry_k1, reps)
     by_buffers = {}
-    for n_buffers in PIPELINE_BUFFERS:
+    for n_buffers in depths:
         by_buffers[n_buffers] = cuda_ms(
             lambda: wrapper(q, corpus, n_real, bins, n_buffers), reps
         )
@@ -476,11 +482,10 @@ def check_bin_topk_pipelined(device, dtype=torch.bfloat16) -> dict:
     bytes_moved = n_real * dim * size + batch * dim * size + bins * batch * 4
     flops = 2.0 * n_real * batch * dim
     b_ms, b_by = bound_ms(bytes_moved, flops, TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
-    groups = K.supertile_groups(device, n_pad, batch, bins)
-    product = "F32Product" if f32 else "Bf16Product"
-    per_launch = [f"bin_carry_pipelined_kernel<{product}>"] + (
-        ["max_over_groups_kernel"] if groups > 1 else []
-    )
+    groups = K.ring_supertile_groups(device, n_pad, batch, bins)
+    per_launch = (["split_tf32_kernel", "ring_carry_kernel<Tf32Stage<false>>"] if f32
+                  else ["ring_carry_kernel<Bf16Stage>"])
+    per_launch += ["max_over_groups_kernel"] if groups > 1 else []
     ms = by_buffers[3]
     log(
         f"  {name} carry kernel by n_buffers "
@@ -489,8 +494,9 @@ def check_bin_topk_pipelined(device, dtype=torch.bfloat16) -> dict:
         f"and {k1_after:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"torch.topk(q @ corpus.T) {library_ms:.4f} ms, bound {b_ms:.4f} ms by "
         f"{b_by} ({bytes_moved / 1e6:.1f} MB); {calls} launches in this check; "
-        f"one launch runs {per_launch} with groups={groups}, "
-        f"{K4.ring_smem_bytes(3)} B of shared memory at 3 stages"
+        f"one launch runs {per_launch} with groups={groups}; shared memory by "
+        f"n_buffers { {n: K4.ring_smem_bytes(n, dtype) for n in depths} } B "
+        f"(limit {K4.BLOCK_SMEM_LIMIT})"
     )
     return {
         "name": name,

@@ -1,6 +1,7 @@
 // The packed bin-max carry on the ring-fed wgmma block (ring_tiles.cuh): one
 // kernel template over the stage, shared by K1 (bin_topk.cu: Bf16Stage,
-// Tf32Stage<false>) and K2 (bin_topk_int8.cu: Int8Stage).
+// Tf32Stage<false>), K2 (bin_topk_int8.cu: Int8Stage) and K4
+// (bin_topk_pipelined.cu: K1's stages, the ring's depth from n_buffers).
 //
 // Bin slice [s0, s0 + 128) only ever receives rows p * bins + s0 .. of
 // super-tile p, so a block owns one slice of 128 bins for one block of 128
@@ -10,9 +11,9 @@
 // `groups` blocks (grid z; the wrappers' ring_supertile_groups, at most one
 // block an SM: 32 slices x 4 groups = 128 blocks at the serving shape);
 // each writes a partial carry and `max_over_groups_kernel` takes the max
-// over them. Each warpgroup folds a super-tile into its packed carry with
-// fold_supertile's arithmetic (mma_tiles.cuh) on wgmma's accumulator
-// layout; the carry lives in shared memory, each thread's 64 words its own,
+// over them. Each warpgroup folds a super-tile into its packed carry
+// (fold_acc, the arithmetic of the plain twin ops/bin_topk.fold_supertiles)
+// on wgmma's accumulator layout; the carry lives in shared memory, each thread's 64 words its own,
 // so that the accumulators and the operands fit the registers that a block
 // of nine warps leaves a thread (168) without spilling. A warpgroup whose
 // bins lie past `bins` (bins % 128 == 64), or whose rows of its group's last
@@ -48,7 +49,8 @@ constexpr int carry_extra_smem() {
 
 // Folds super-tile p's scores of this warpgroup (rows p * bins + s ..) into
 // its packed running max (this thread's words of `carry`, GROUP_THREADS
-// apart) with fold_supertile's arithmetic, and zeroes acc. A scaled stage's
+// apart) as ops/bin_topk.fold_supertiles does: max(score + 3, 1e-30), 0 on
+// pad rows, the low steal bits replaced by p. Zeroes acc. A scaled stage's
 // scores take the row scales rs of the thread's rows (r, r + 8) and the
 // block's query scales qs.
 template <class Stage>

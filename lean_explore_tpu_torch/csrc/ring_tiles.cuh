@@ -30,7 +30,9 @@
 // scripts/time_bf16_variants.py). A wgmma bf16 k16 step adds as mma.sync
 // m16n8k16 does (scripts/compare_torch_kernel_builds.py holds the kernels
 // to the mma.sync kernels before them bit for bit), so the carry and the
-// scores keep their bits and K4 (bin_topk_pipelined.cu) still equals K1.
+// scores kept their bits when the kernels moved to wgmma. K4
+// (bin_topk_pipelined.cu) runs K1's carry kernel at another ring depth,
+// which changes no sum, so it equals K1.
 // The int8 products are exact integers in s32, whatever the order of the
 // sums, so K2's raw sums are those of any exact product.
 //
@@ -44,9 +46,10 @@
 // (whose four 8 x 4 f32 matrices are the m16n8k8 tf32 A fragment) and
 // splits them; A then comes from registers, B (the query halves) from
 // shared memory. For each k8 step the three products are issued in
-// F32Product::mma3's order (K4's, on mma.sync): acc += A_lo q_hi, acc +=
-// A_hi q_lo, acc += A_hi q_hi. A wgmma tf32 k8 step adds as mma.sync
-// m16n8k8 does, so these kernels too keep the mma.sync kernels' bits.
+// F32Product::mma3's order (the mma.sync kernels' before them): acc +=
+// A_lo q_hi, acc += A_hi q_lo, acc += A_hi q_hi. A wgmma tf32 k8 step adds
+// as mma.sync m16n8k8 does, so these kernels too keep the mma.sync
+// kernels' bits.
 //
 // The ring. A stage's TMA copies complete on its full mbarrier (expect_tx of
 // the whole stage: rows outside a tensor map are zero-filled and counted).
@@ -54,9 +57,10 @@
 // waited for; its ldmatrix reads are generic-proxy reads of memory the next
 // TMA refill writes through the async proxy, so each thread fences
 // (`fence_proxy_async_shared`, tma_ring.cuh) before the arrive: without it
-// K4's ring refilled stages under a warp's last reads. A stage read by
-// wgmma descriptors alone is read through the async proxy, as the refill
-// writes it. No __syncthreads() runs inside the loop.
+// a ring refilled stages under a warp's last reads (K4's mma.sync kernel
+// before it moved onto this block, whose consumers read every stage with
+// ldmatrix). A stage read by wgmma descriptors alone is read through the
+// async proxy, as the refill writes it. No __syncthreads() runs inside the loop.
 
 #pragma once
 

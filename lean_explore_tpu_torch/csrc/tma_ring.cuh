@@ -1,6 +1,6 @@
-// The TMA ring's pieces shared by the ring-fed kernels (bin_topk_pipelined.cu
-// and, through ring_tiles.cuh, bin_topk.cu and windowed_scores.cu):
-// mbarriers, their bounded wait, the 2-D tile copy
+// The TMA ring's pieces shared by the ring-fed kernels (through
+// ring_tiles.cuh: bin_topk.cu, bin_topk_int8.cu, bin_topk_pipelined.cu and
+// windowed_scores.cu): mbarriers, their bounded wait, the 2-D tile copy
 // (`cp.async.bulk.tensor.2d`) and the tensor map of a row-major array of
 // 128-byte multiples in the 128-byte swizzle, built on the host through
 // `cuTensorMapEncodeTiled`, which the CUDA runtime looks up in the driver
@@ -104,8 +104,7 @@ EncodeTiled encode_tiled() {
 
 // A map of `rows` x `row_bytes` bytes at `base` in boxes of `box_rows` rows x
 // 128 bytes, 128-byte swizzle; rows outside the map read as zeros.
-bool encode_rows(CUtensorMap* map, const void* base, int rows, int row_bytes,
-                 int box_rows = BM) {
+bool encode_rows(CUtensorMap* map, const void* base, int rows, int row_bytes, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};

@@ -41,9 +41,10 @@ from lean_explore_tpu_torch.ops.cuda_build import load_library
 
 PACK_SHIFT = 3.0
 PACK_FLOOR = 1e-30
-# Kernel tile sizes (csrc/mma_tiles.cuh BM, STAGE_BYTES): corpus rows and
-# bins come in slices of 64, and the depth in stages of 128 bytes: 64 bf16
-# or 32 f32 values.
+# What the carry kernels take: corpus rows and bins in multiples of 64 (one
+# warpgroup's rows, csrc/ring_carry.cuh: a warpgroup past N or past `bins`
+# folds nothing), and the depth in stages of 128 bytes (csrc/mma_tiles.cuh
+# STAGE_BYTES): 64 bf16 or 32 f32 values.
 ROW_MULTIPLE = 64
 STAGE_BYTES = 128
 # The wgmma kernels' blocks (csrc/ring_tiles.cuh RING_ROWS, RING_QUERIES):
@@ -141,18 +142,10 @@ def _configure(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
-def supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
-    """Groups K4's mma.sync carry kernel splits the super-tiles of [n] rows
-    over, so that about four blocks of (64 bins x 64 queries) run per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = (bins // ROW_MULTIPLE) * -(-batch // 64)
-    return max(1, min(-(-n // bins), -(-4 * sms // blocks)))
-
-
 def ring_supertile_groups(device: torch.device, n: int, batch: int, bins: int) -> int:
-    """Groups the wgmma carry kernels (K1 in bf16 and float32, K2 in int8)
-    split the super-tiles of [n] rows over: their blocks of (128 bins x 128
-    queries) take one SM each, so at most one wave of them."""
+    """Groups the wgmma carry kernels (K1 and K4 in bf16 and float32, K2 in
+    int8) split the super-tiles of [n] rows over: their blocks of (128 bins
+    x 128 queries) take one SM each, so at most one wave of them."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     blocks = -(-bins // RING_ROWS) * -(-batch // RING_QUERIES)
     return max(1, min(-(-n // bins), sms // blocks))
@@ -204,13 +197,10 @@ def check_carry_inputs(
 
 
 def carry_buffers(
-    corpus: torch.Tensor, batch: int, bins: int, groups: int | None = None
+    corpus: torch.Tensor, batch: int, bins: int, groups: int
 ) -> tuple[torch.Tensor, torch.Tensor | None, int]:
-    """(out [bins, B], partial [groups, bins, B] or None, groups); groups
-    from ``supertile_groups`` unless given."""
+    """(out [bins, B], partial [groups, bins, B] or None, groups)."""
     device = corpus.device
-    if groups is None:
-        groups = supertile_groups(device, corpus.shape[0], batch, bins)
     out = torch.empty(bins, batch, dtype=torch.float32, device=device)
     partial = (
         torch.empty(groups, bins, batch, dtype=torch.float32, device=device)

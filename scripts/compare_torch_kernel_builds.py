@@ -15,7 +15,10 @@ the port's nvcc flags, each into its own directory under
 points on the same inputs: ``bin_topk_carry`` (bf16),
 ``bin_topk_int8_carry`` (the same corpus and queries quantized per row),
 ``bin_topk_pipelined_carry`` and ``bin_topk_pipelined_carry_f32`` (K4 at 3
-ring stages, bf16 and the same corpus in float32) and ``windowed_scores``
+ring stages, bf16 and the same corpus in float32; on mma.sync with 64 x 64
+blocks in older trees, K1's wgmma kernel with a ``q_split`` scratch for
+float32 in newer ones, each tree's interface and groups read from its
+source) and ``windowed_scores``
 (bf16) at the serving shape (300,000 valid rows of a 300,032 x 1024
 unit-row corpus, B = 128, bins = 4096, window 8) and two small shapes,
 compared bit for bit (K1 and K3 in bf16 and K2 on wgmma in newer trees,
@@ -44,7 +47,9 @@ within ``ops.flash_attention.kernel_tolerance`` at the serving shape (B =
 the backward's dq, dk and dv against ``attention_flash_bwd_plain`` within
 ``bwd_kernel_tolerance`` at the backward's two shapes. Then the CUDA-event
 mean of 20 launches of each build's retrieval entries, bf16 and float32,
-and of its int8 carry, at the serving shape (six rounds of turns: a few percent of drift hides a 1%
+of its K4 at every ring depth this tree's wrapper takes (2 to
+``MAX_BUFFERS``: 2-5 bf16, 2-3 float32), and of its int8 carry, at the
+serving shape (six rounds of turns: a few percent of drift hides a 1%
 difference in fewer), and of its forwards at chip_smoke.py's serving
 shape (B 64 x T 512, its ragged and left-padded mask, then phase 4d's
 embed batch's mask) and training shape (B 32 x T 256, the backward check's
@@ -147,26 +152,43 @@ def takes_split(csrc: Path) -> bool:
 
 def bf16_carry_on_ring(csrc: Path) -> bool:
     """Whether a tree's bf16 carry runs the wgmma kernel, whose wrapper
-    takes ``ring_supertile_groups`` (else ``supertile_groups``)."""
+    takes ``ring_supertile_groups`` (else ``mma_sync_supertile_groups``)."""
     return "Bf16Stage" in (csrc / "bin_topk.cu").read_text()
+
+
+def pipelined_on_ring(csrc: Path) -> bool:
+    """Whether a tree's K4 runs K1's wgmma carry kernel (its float32 entry
+    then takes the ``q_split`` scratch and its wrapper
+    ``ring_supertile_groups``)."""
+    return "launch_ring_carry" in (csrc / "bin_topk_pipelined.cu").read_text()
+
+
+def mma_sync_supertile_groups(device, n: int, batch: int, bins: int) -> int:
+    """The groups older trees' mma.sync carry wrappers split the super-tiles
+    over: about four blocks of (64 bins x 64 queries) an SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = (bins // 64) * -(-batch // 64)
+    return max(1, min(-(-n // bins), -(-4 * sms // blocks)))
 
 
 def int8_carry_on_ring(csrc: Path) -> bool:
     """Whether a tree's int8 carry runs the wgmma kernel, whose wrapper
-    takes ``ring_supertile_groups`` (else ``supertile_groups``)."""
+    takes ``ring_supertile_groups`` (else ``mma_sync_supertile_groups``)."""
     return "Int8Stage" in (csrc / "bin_topk_int8.cu").read_text()
 
 
 def _configure(kernel: str, lib: ctypes.CDLL, split: bool = True, ring: bool = True,
-               int8_ring: bool = True) -> None:
+               int8_ring: bool = True, k4_ring: bool = True) -> None:
     """Sets the argument types of a library's entries; ``split`` says
     whether its float32 retrieval entries take the ``q_split`` scratch,
-    ``ring`` whether its bf16 carry is the wgmma kernel and ``int8_ring``
-    whether its int8 carry is; all are kept on the library
-    (``f32_takes_split``, ``bf16_on_ring``, ``int8_on_ring``)."""
+    ``ring`` whether its bf16 carry is the wgmma kernel, ``int8_ring``
+    whether its int8 carry is and ``k4_ring`` whether its K4 is; all are
+    kept on the library (``f32_takes_split``, ``bf16_on_ring``,
+    ``int8_on_ring``, ``k4_on_ring``)."""
     lib.f32_takes_split = split
     lib.bf16_on_ring = ring
     lib.int8_on_ring = int8_ring
+    lib.k4_on_ring = k4_ring
     extra = [ctypes.c_void_p] if split else []
     if kernel == "bin_topk":
         fns = [lib.bin_topk_carry, lib.bin_topk_carry_f32]
@@ -175,8 +197,12 @@ def _configure(kernel: str, lib: ctypes.CDLL, split: bool = True, ring: bool = T
             [ctypes.c_void_p] * 4 + extra + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     elif kernel == "bin_topk_pipelined":
         fns = [lib.bin_topk_pipelined_carry, lib.bin_topk_pipelined_carry_f32]
-        for fn in fns:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        k4_split = [ctypes.c_void_p] if k4_ring else []
+        lib.bin_topk_pipelined_carry.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.bin_topk_pipelined_carry_f32.argtypes = (
+            [ctypes.c_void_p] + k4_split + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+            + [ctypes.c_void_p])
     elif kernel == "bin_topk_int8":
         fns = [lib.bin_topk_int8_carry]
         fns[0].argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -202,12 +228,13 @@ def _configure(kernel: str, lib: ctypes.CDLL, split: bool = True, ring: bool = T
         fn.restype = ctypes.c_int
 
 
-def split_args(lib, q) -> list:
+def split_args(lib, q, takes: bool | None = None) -> list:
     """[q_split pointer] for a library whose float32 entries take the
-    scratch (kept alive on the library until its next call), else []."""
+    scratch (``takes``, else ``lib.f32_takes_split``; kept alive on the
+    library until its next call), else []."""
     from lean_explore_tpu_torch.ops.bin_topk import split_scratch
 
-    if not lib.f32_takes_split:
+    if not (lib.f32_takes_split if takes is None else takes):
         return []
     lib.last_split = split_scratch(q)
     return [lib.last_split.data_ptr()]
@@ -222,9 +249,9 @@ def run_bin_topk(lib, q, corpus, n_valid, bins) -> torch.Tensor:
 
     n, dim = corpus.shape
     f32 = corpus.dtype == torch.float32
-    groups = None
-    if lib.f32_takes_split if f32 else lib.bf16_on_ring:
-        groups = ring_supertile_groups(corpus.device, n, q.shape[0], bins)
+    groups_of = (ring_supertile_groups if (lib.f32_takes_split if f32 else lib.bf16_on_ring)
+                 else mma_sync_supertile_groups)
+    groups = groups_of(corpus.device, n, q.shape[0], bins)
     out, partial, groups = carry_buffers(corpus, q.shape[0], bins, groups)
     stream = torch.cuda.current_stream().cuda_stream
     fn = lib.bin_topk_carry_f32 if f32 else lib.bin_topk_carry
@@ -238,18 +265,26 @@ def run_bin_topk(lib, q, corpus, n_valid, bins) -> torch.Tensor:
     return out
 
 
-def run_pipelined(lib, q, corpus, n_valid, bins) -> torch.Tensor:
-    """K4's carry at K4_BUFFERS ring stages, with K4's wrapper's groups."""
-    from lean_explore_tpu_torch.ops.bin_topk import carry_buffers, steal_bits_for
+def run_pipelined(lib, q, corpus, n_valid, bins, n_buffers: int = K4_BUFFERS) -> torch.Tensor:
+    """K4's carry at ``n_buffers`` ring stages, with the groups and the C
+    interface of the library's own tree."""
+    from lean_explore_tpu_torch.ops.bin_topk import (
+        carry_buffers,
+        ring_supertile_groups,
+        steal_bits_for,
+    )
 
     n, dim = corpus.shape
-    out, partial, groups = carry_buffers(corpus, q.shape[0], bins)
-    fn = (lib.bin_topk_pipelined_carry if corpus.dtype == torch.bfloat16
-          else lib.bin_topk_pipelined_carry_f32)
+    f32 = corpus.dtype == torch.float32
+    groups_of = ring_supertile_groups if lib.k4_on_ring else mma_sync_supertile_groups
+    groups = groups_of(corpus.device, n, q.shape[0], bins)
+    out, partial, groups = carry_buffers(corpus, q.shape[0], bins, groups)
+    fn = lib.bin_topk_pipelined_carry_f32 if f32 else lib.bin_topk_pipelined_carry
+    split = split_args(lib, q, lib.k4_on_ring) if f32 else []
     status = fn(
-        q.data_ptr(), corpus.data_ptr(), out.data_ptr(),
+        q.data_ptr(), *split, corpus.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None, q.shape[0], n, dim,
-        n_valid, bins, steal_bits_for(n, bins), groups, K4_BUFFERS,
+        n_valid, bins, steal_bits_for(n, bins), groups, n_buffers,
         torch.cuda.current_stream().cuda_stream,
     )
     if status != 0:
@@ -266,9 +301,8 @@ def run_bin_topk_int8(lib, q_codes, q_scales, codes, scales, n_valid, bins) -> t
     )
 
     n, dim = codes.shape
-    groups = None
-    if lib.int8_on_ring:
-        groups = ring_supertile_groups(codes.device, n, q_codes.shape[0], bins)
+    groups_of = ring_supertile_groups if lib.int8_on_ring else mma_sync_supertile_groups
+    groups = groups_of(codes.device, n, q_codes.shape[0], bins)
     out, partial, groups = carry_buffers(codes, q_codes.shape[0], bins, groups)
     status = lib.bin_topk_int8_carry(
         q_codes.data_ptr(), q_scales.data_ptr(), codes.data_ptr(), scales.data_ptr(),
@@ -388,9 +422,11 @@ def in_turns(builds, kernel: str, run, reps: int = 20, rounds: int = 1) -> list:
 
 
 def time_retrieval(builds) -> None:
-    """Both builds' K1 and K3 entries, bf16 and float32, and their K2 (the
-    bf16 inputs quantized per row), at the serving shape (the first of
-    SHAPES), in RETRIEVAL_ROUNDS rounds of turns."""
+    """Both builds' K1 and K3 entries, bf16 and float32, their K4 at every
+    ring depth this tree's wrapper takes, and their K2 (the bf16 inputs
+    quantized per row), at the serving shape (the first of SHAPES), in
+    RETRIEVAL_ROUNDS rounds of turns."""
+    from lean_explore_tpu_torch.ops.bin_topk_pipelined import MAX_BUFFERS, MIN_BUFFERS
     from lean_explore_tpu_torch.ops.quant import quantize_rows_device
 
     n, n_valid, dim, batch, bins, window = SHAPES[0]
@@ -410,6 +446,16 @@ def time_retrieval(builds) -> None:
                 "kernel": kernel + suffix, "shape": "serving", "rows": n, "n_valid": n_valid,
                 "dim": dim, "batch": batch, "bins": bins, "window": window,
                 "ms_in_turns": in_turns(builds, source, run, rounds=RETRIEVAL_ROUNDS),
+            }), flush=True)
+        for n_buffers in range(MIN_BUFFERS, MAX_BUFFERS[dtype] + 1):
+            print(json.dumps({
+                "kernel": "bin_topk_pipelined" + suffix, "shape": "serving", "rows": n,
+                "n_valid": n_valid, "dim": dim, "batch": batch, "bins": bins,
+                "n_buffers": n_buffers,
+                "ms_in_turns": in_turns(
+                    builds, "bin_topk_pipelined",
+                    lambda lib: run_pipelined(lib, q, corpus, n_valid, bins, n_buffers),
+                    rounds=RETRIEVAL_ROUNDS),
             }), flush=True)
         if dtype == torch.bfloat16:
             q8, q8_scales = quantize_rows_device(q.float())
@@ -583,7 +629,7 @@ def main() -> int:
     for tag, libs in builds.items():
         for kernel, (lib, _) in libs.items():
             _configure(kernel, lib, takes_split(trees[tag]), bf16_carry_on_ring(trees[tag]),
-                       int8_carry_on_ring(trees[tag]))
+                       int8_carry_on_ring(trees[tag]), pipelined_on_ring(trees[tag]))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -136,12 +136,31 @@ def test_cpu_tensors_take_k1s_plain_twin_and_count_nothing():
     assert K4.bin_topk_pipelined_carry.launches == before
 
 
-def test_ring_fits_a_blocks_shared_memory():
-    """The ring's dynamic shared memory (csrc/bin_topk_pipelined.cu): 3
-    stages take 49,152 bytes of tiles, 48 of mbarriers and 1,024 of
-    alignment slack (above the 48 KB a launch gets without the attribute);
-    14 fit in 227 KB, 15 do not."""
-    assert K4.ring_smem_bytes(3) == 3 * 2 * 64 * 128 + 3 * 16 + 1024 == 50_224
-    assert K4.MAX_BUFFERS == 14
-    assert K4.ring_smem_bytes(14) <= K4.BLOCK_SMEM_LIMIT < K4.ring_smem_bytes(15)
-    assert set(K4.KERNEL_ENTRIES) == set(K.KERNEL_ENTRIES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_fits_a_blocks_shared_memory(dtype):
+    """K1's carry block at each depth (csrc/bin_topk_pipelined.cu): per
+    stage the corpus box and one query box (bf16) or the tf32 hi and lo
+    boxes (float32), 16 KB each, and 16 bytes of mbarriers; the 64 KB
+    carry; 1,024 bytes of alignment slack. The deepest ring that fits in
+    227 KB is MAX_BUFFERS[dtype] (bf16 5: 230,480 bytes; float32 3:
+    214,064), one stage more does not, and the kernel's static_asserts
+    state the same limits."""
+    import re
+
+    from lean_explore_tpu_torch.ops.cuda_build import CSRC_DIR
+
+    boxes = {torch.bfloat16: 2, torch.float32: 3}[dtype]
+    limit = K4.MAX_BUFFERS[dtype]
+    assert K4.ring_smem_bytes(limit, dtype) == (
+        limit * (boxes * 128 * 128 + 16) + 2 * 64 * 128 * 4 + 1024
+    )
+    assert K4.ring_smem_bytes(limit, dtype) <= K4.BLOCK_SMEM_LIMIT
+    assert K4.ring_smem_bytes(limit + 1, dtype) > K4.BLOCK_SMEM_LIMIT
+    assert K4.MIN_BUFFERS == 2 <= limit
+    stage = {torch.bfloat16: "Bf16Stage", torch.float32: r"Tf32Stage<false>"}[dtype]
+    source = (CSRC_DIR / "bin_topk_pipelined.cu").read_text()
+    stated = re.findall(rf"static_assert\(max_buffers<{re.escape(stage)}>\(\) == (\d+)", source)
+    assert stated == [str(limit)]
+    assert re.search(r"constexpr int BLOCK_SMEM = (\d+);", source).group(1) == str(
+        K4.BLOCK_SMEM_LIMIT)
+    assert set(K4.KERNEL_ENTRIES) == set(K.KERNEL_ENTRIES) == set(K4.MAX_BUFFERS)

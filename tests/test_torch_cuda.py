@@ -12,10 +12,9 @@ of unit rows of depth D (2 * D * 2^-24), plus, for the packed carry, two
 packing quanta (2^steal_bits ulps of [2, 4), 2^-22 each) (derivation in
 chip_smoke.py). The int8 kernel's products are exact integers and its f32
 steps are rounded as its twin's, so its carry equals the twin's bit for bit.
-The ring-fed carry kernel (K4) runs K1's products in K1's order, so its
-carry equals K1's kernel carry bit for bit: K4 runs them on mma.sync
-(m16n8k16 bf16, m16n8k8 tf32) and K1 on wgmma (m64n128k16, m64n128k8),
-whose k steps give the same bits.
+The ring-fed carry kernel (K4) is K1's kernel with the ring's depth set
+by n_buffers, which changes when a stage is copied but not the order of
+any sum, so its carry equals K1's kernel carry bit for bit at every depth.
 The float32 kernels (3xTF32) are held to 3 * 2^-22 + 7 * D * 2^-24 (the
 split's error and truncating tensor-core sums; ops.bin_topk.score_tolerance),
 and flash attention on valid rows to ops.flash_attention.kernel_tolerance:
@@ -472,12 +471,16 @@ CARRY_CASES = [
 ]
 
 
-@pytest.mark.parametrize("n_buffers", [2, 3, 4])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+# (dtype, n_buffers): every depth each dtype's ring takes, 2 to MAX_BUFFERS.
+PIPELINE_DEPTHS = [(dtype, n) for dtype, limit in K4.MAX_BUFFERS.items()
+                   for n in range(K4.MIN_BUFFERS, limit + 1)]
+
+
+@pytest.mark.parametrize("dtype,n_buffers", PIPELINE_DEPTHS)
 @pytest.mark.parametrize("n,n_valid,batch,bins", CARRY_CASES)
 def test_pipelined_carry_equals_k1(cuda, n, n_valid, batch, bins, dtype, n_buffers):
     """K4's carry is K1's kernel carry, bit for bit, at test_carry_matches_plain's
-    cases, bf16 and f32, for 2, 3 and 4 ring stages."""
+    cases, bf16 and f32, at every ring depth from 2 to MAX_BUFFERS[dtype]."""
     gen = torch.Generator(device=cuda).manual_seed(n + batch + 5)
     corpus = _unit_rows(n, 256, gen, cuda, dtype)
     queries = _unit_rows(batch, 256, gen, cuda, dtype)
@@ -490,19 +493,21 @@ def test_pipelined_carry_equals_k1(cuda, n, n_valid, batch, bins, dtype, n_buffe
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("end", ["shortest", "deepest"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_pipelined_carry_equals_k1_in_every_repeated_launch(cuda, dtype):
+def test_pipelined_carry_equals_k1_in_every_repeated_launch(cuda, dtype, end):
     """A fault of the ring's protocol (the refill overtaking the consumers'
     reads) changes a carry in only some launches: 200 launches at the
-    shortest ring over one super-tile (bins = rows, so every product
-    reaches the carry) must each equal K1's kernel carry."""
+    shortest and at the deepest ring over one super-tile (bins = rows, so
+    every product reaches the carry) must each equal K1's kernel carry."""
+    n_buffers = K4.MIN_BUFFERS if end == "shortest" else K4.MAX_BUFFERS[dtype]
     gen = torch.Generator(device=cuda).manual_seed(9)
     corpus = _unit_rows(16384, 1024, gen, cuda, dtype)
     queries = _unit_rows(128, 1024, gen, cuda, dtype)
     want = K.bin_topk_carry(queries, corpus, 16384, 16384).view(torch.int32)
     differing = 0
     for _ in range(200):
-        got = K4.bin_topk_pipelined_carry(queries, corpus, 16384, 16384, 2)
+        got = K4.bin_topk_pipelined_carry(queries, corpus, 16384, 16384, n_buffers)
         differing += int(not torch.equal(got.view(torch.int32), want))
     assert differing == 0
 
@@ -522,12 +527,14 @@ def test_pipelined_top_k_equals_k1_at_the_tpu_tests_case(cuda, dtype):
     assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
 
 
-def test_pipelined_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    corpus = torch.zeros(512, 64, dtype=torch.bfloat16, device=cuda)
-    q = torch.zeros(2, 64, dtype=torch.bfloat16, device=cuda)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pipelined_wrapper_rejects_what_the_kernel_does_not_take(cuda, dtype):
+    corpus = torch.zeros(512, 64, dtype=dtype, device=cuda)
+    q = torch.zeros(2, 64, dtype=dtype, device=cuda)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     before = K4.bin_topk_pipelined_carry.launches
     with pytest.raises(TypeError):
-        K4.bin_topk_pipelined_carry(q.float(), corpus, 512, 256)
+        K4.bin_topk_pipelined_carry(q.to(other), corpus, 512, 256)
     with pytest.raises(TypeError, match="bf16 or float32"):
         K4.bin_topk_pipelined_carry(q.half(), corpus.half(), 512, 256)
     with pytest.raises(ValueError, match="multiples"):
@@ -536,12 +543,13 @@ def test_pipelined_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         K4.bin_topk_pipelined_carry(q, corpus.T.contiguous().T, 512, 256)
     with pytest.raises(ValueError, match="CUDA device"):
         K4.bin_topk_pipelined_carry(q.cpu(), corpus, 512, 256)
-    for n_buffers in (1, K4.MAX_BUFFERS + 1):
-        with pytest.raises(ValueError, match="n_buffers"):
+    limit = K4.MAX_BUFFERS[dtype]
+    for n_buffers in (1, limit + 1):
+        with pytest.raises(ValueError, match=rf"n_buffers in \[2, {limit}\] for a {dtype}"):
             K4.bin_topk_pipelined_carry(q, corpus, 512, 256, n_buffers)
     assert K4.bin_topk_pipelined_carry.launches == before
     # The most stages that fit still launch and give K1's carry.
-    got = K4.bin_topk_pipelined_carry(q, corpus, 512, 256, K4.MAX_BUFFERS)
+    got = K4.bin_topk_pipelined_carry(q, corpus, 512, 256, limit)
     assert K4.bin_topk_pipelined_carry.launches == before + 1
     assert torch.equal(got, K.bin_topk_carry(q, corpus, 512, 256))
 
