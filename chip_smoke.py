@@ -46,6 +46,17 @@ Phases, each announced before it starts and timed after it ends:
    ``embed_sync`` of 64 long documents on a float32 copy of the embedder;
    4e. ``DenseIndex.search`` over the phase-4 corpus held in float32 on
    the card, with the default method and the windowed one;
+   4f. the reranker's variants on the phase-4 service, each one warm and
+   two timed batches: (a) the W8A8 int8 reranker (``quantize_params_int8``
+   of the bf16 reranker's params, ``from_components(int8=True)``; every
+   projection leaf int8 on the card, its products through
+   ``torch._int_mm`` on int8 tensors, its P(true) drift against bf16 on
+   the last batch's groups, nonzero and finite), (b) fused QKV in both
+   clients (the grouped scores' largest difference from the unfused
+   reranker), (c) ``rerank_sync`` of one query's 50 documents and
+   ``rerank_pairs_sync`` of 1,024 pairs in 16 same-shape buckets, its
+   chained scores equal to a per-bucket ``rerank_scores`` loop bit for
+   bit, both timed;
    phase 3 also holds bin_topk over a float32 corpus at phase 6's shape
    (200,000 x 384, B = 64, k = 1000) against its plain twin.
 5. drive training at the Qwen3-0.6B geometry with
@@ -56,8 +67,8 @@ Phases, each announced before it starts and timed after it ends:
    32, queries 64, documents 256 tokens, AdamW lr 1e-5) to step 4 with a
    checkpoint every 2 steps, then again to step 6, resuming from step 4;
    5c one batch's loss and gradients with flash and without; 5d two
-   cross-encoder steps in bf16 at max_length 256 (their pairs/s on a line
-   of its own). Every step launches K5's
+   cross-encoder steps in bf16 at max_length 256 (their pairs/s and each
+   step's seconds on a line of its own). Every step launches K5's
    forward, dq and dk/dv once per layer each, and no other kernel.
 6. build the index of the committed 200k chain through the port and
    evaluate it: ``make_corpus`` at the chain's arguments, a
@@ -69,7 +80,15 @@ Phases, each announced before it starts and timed after it ends:
    eval queries at rerank_top 50 (K1-f32 once a batch of 64); recall@1,
    recall@10 and MRR@10 must lie within 2 queries (0.004 for MRR) of the
    committed JAX numbers (runs/scale200k/cascade_eval.json, full_pipeline,
-   a TPU run). A missing checkpoint fails the phase.
+   a TPU run); then, on the same engine, the rerank cascade at 48,16,
+   48,25 and 24,8 (LEAN_EXPLORE_RERANK_CASCADE set and popped), each held
+   the same way to its own row of that record (24,8, the kept divergence
+   ROADMAP C6, logged beside its row and held instead to the committed
+   stage-1 keep sets of runs/scale200k/cascade_24_8_divergence.json), and
+   the int8 reranker
+   (the chain's reranker loaded in bf16 and quantized), logged beside the
+   float32 arm; K1-f32 once a batch of 64 in every arm. A missing
+   checkpoint fails the phase.
 Every kernel's launch count is set to 0 just before each path of phases
 3b, 4, 5 and 6 is driven and read just after it.
 
@@ -1719,7 +1738,221 @@ def run_service(device, kernels, card) -> None:
             k1, k3 = run_f32_corpus_search(embedder, bf16.ids, card)
             by_name["bin_topk_f32"]["launches"] = k1
             by_name["windowed_scores_f32"]["launches"] = k3
+        with Phase("4f. the reranker's variants: int8 trunk, fused QKV, rerank_sync and chained scoring"):
+            run_reranker_variants(serving, card)
         log(f"  lexcore native {lexcore}")
+
+
+def clone_reranker(client, params, **kw):
+    """A reranker with ``client``'s tokenizer and settings around
+    ``params``."""
+    from lean_explore_tpu_torch.util.reranker_client import RerankerClient
+
+    settings = dict(
+        model_name=client.model_name, max_length=client.max_length,
+        instruction=client.instruction, batch_size=client.batch_size,
+    )
+    return RerankerClient.from_components(
+        params, client.config, client.tokenizer, **{**settings, **kw}
+    )
+
+
+class CountIntMM:
+    """Counts ``torch._int_mm`` calls while active and checks that each
+    multiplies int8 tensors on the card."""
+
+    def __enter__(self):
+        self.calls = 0
+        self._real = torch._int_mm
+
+        def counted(a, b):
+            if a.dtype != torch.int8 or b.dtype != torch.int8 or a.device.type != "cuda":
+                raise AssertionError(f"_int_mm on {a.dtype} x {b.dtype} on {a.device}")
+            self.calls += 1
+            return self._real(a, b)
+
+        torch._int_mm = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch._int_mm = self._real
+        return False
+
+
+def capture_groups(client) -> list:
+    """Records the (queries, groups) of ``client``'s grouped rerank calls."""
+    calls = []
+    real = client.rerank_grouped_sync
+
+    def spy(queries, docs_grouped, **kw):
+        calls.append((list(queries), [list(d) for d in docs_grouped]))
+        return real(queries, docs_grouped, **kw)
+
+    client.rerank_grouped_sync = spy
+    return calls
+
+
+def score_diff(a: list, b: list) -> np.ndarray:
+    return np.abs(np.concatenate([np.asarray(x) - np.asarray(y) for x, y in zip(a, b)]))
+
+
+def check_int_mm(device) -> None:
+    """``torch._int_mm``'s own refusals on the card at the shapes that
+    ``qwen3._linear_q8`` pads (16 rows) or raises on (inner 12, outer 20),
+    and ``quantize_params_int8`` and ``_linear_q8`` on the card equal to
+    their CPU results bit for bit (``_linear_q8`` at 5 padded and 40 rows:
+    int32 sums are exact; the scales are IEEE quotients, the rescale two
+    IEEE products)."""
+    from lean_explore_tpu_torch.models import qwen3
+
+    refusals = []
+    for m, k, n in ((16, 32, 32), (32, 12, 32), (32, 32, 20)):
+        a = torch.ones(m, k, dtype=torch.int8, device=device)
+        b = torch.ones(k, n, dtype=torch.int8, device=device)
+        try:
+            torch._int_mm(a, b)
+            refusals.append(f"[{m}, {k}] x [{k}, {n}] accepted")
+        except RuntimeError as err:
+            refusals.append(f"[{m}, {k}] x [{k}, {n}]: {str(err).splitlines()[0]}")
+    log("  torch._int_mm on the card: " + " | ".join(refusals))
+    gen = torch.Generator().manual_seed(8)
+    w = torch.randn(1, 1024, 3072, generator=gen) * 0.02
+    layers = qwen3.quantize_params_int8({"layers": {"up_proj": w}})["layers"]
+    on_card = qwen3.quantize_params_int8({"layers": {"up_proj": w.to(device)}})["layers"]
+    for key in ("w8", "scale"):
+        if not torch.equal(on_card["up_proj"][key].cpu(), layers["up_proj"][key]):
+            raise AssertionError(f"quantize_params_int8 on the card: {key} differs from the CPU's")
+    quant = {k: v[0] for k, v in layers["up_proj"].items()}
+    for rows in (5, 40):
+        h = torch.randn(rows, 1024, generator=gen)
+        want = qwen3._linear_q8(h, quant)
+        got = qwen3._linear_q8(h.to(device), {k: v.to(device) for k, v in quant.items()}).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"_linear_q8 at {rows} rows: card differs from CPU by {(got - want).abs().max()}"
+            )
+    log("  quantize_params_int8 and _linear_q8 (5 padded and 40 rows) on the card == on the CPU bit for bit")
+
+
+CHAIN_PAIRS, CHAIN_PAIR_BATCH = 1024, 64
+
+
+def run_reranker_variants(serving, card) -> None:
+    """Phase 4f on the phase-4 set-up: (a) the int8 reranker
+    (``quantize_params_int8`` of the bf16 reranker's params through
+    ``from_components(int8=True)``), (b) fused QKV in both clients, each
+    through ``drive_service``; (c) ``rerank_sync`` of one query's 50
+    documents and ``rerank_pairs_sync`` of 1,024 pairs in 16 same-shape
+    buckets, held bit for bit to a per-bucket ``rerank_scores`` loop."""
+    from lean_explore_tpu_torch.models import qwen3
+    from lean_explore_tpu_torch.models.tokenizer import encode_batch
+    from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+
+    bf16 = serving.reranker
+    check_int_mm(serving.device)
+    # (a) The int8 reranker.
+    int8 = clone_reranker(bf16, qwen3.quantize_params_int8(bf16.params), int8=True)
+    expect_int8_leaves(int8)
+    groups = capture_groups(int8)
+    with CountIntMM() as int_mm:
+        drive_service(
+            dataclasses.replace(serving, reranker=int8).service(), serving.store,
+            "int8 reranker, bf16 corpus", "bin_topk", card,
+        )
+    if int_mm.calls == 0:
+        raise AssertionError("the int8 reranker never reached torch._int_mm")
+    queries, docs = groups[-1]
+    want = bf16.rerank_grouped_sync(queries, docs)
+    drift = score_diff(int8.rerank_grouped_sync(queries, docs), want)
+    if not (np.isfinite(drift).all() and drift.max() > 0):
+        raise AssertionError(f"int8 P(true) drift {drift.max()}")
+    log(
+        f"  int8 reranker: torch._int_mm calls {int_mm.calls} (int8 on the card); "
+        f"P(true) drift against bf16 on {len(drift)} pairs of the last batch: max "
+        f"{drift.max():.5f}, mean {drift.mean():.6f}; {card}"
+    )
+    del int8
+
+    # (b) Fused QKV in both clients.
+    emb = serving.embedder
+    fused_embedder = EmbeddingClient.from_components(
+        qwen3.fuse_params_for_serving(emb.params), emb.config, emb.tokenizer,
+        model_name=emb.model_name, max_length=emb.max_length, batch_size=emb.batch_size,
+        append_eos=emb.append_eos, query_prompt=emb.query_prompt,
+    )
+    fused = clone_reranker(bf16, qwen3.fuse_params_for_serving(bf16.params))
+    drive_service(
+        dataclasses.replace(serving, embedder=fused_embedder, reranker=fused).service(),
+        serving.store, "fused QKV, both clients", "bin_topk", card,
+    )
+    diff = score_diff(fused.rerank_grouped_sync(queries, docs), want)
+    emb_diff = float((fused_embedder.embed_device(queries, True)
+                      - emb.embed_device(queries, True)).abs().max())
+    log(
+        f"  fused QKV: grouped scores' largest difference from the unfused "
+        f"reranker {diff.max():.3g} over {len(diff)} pairs; query embeddings' "
+        f"{emb_diff:.3g}; {card}"
+    )
+    del fused, fused_embedder
+    torch.cuda.empty_cache()
+
+    # (c) rerank_sync, and rerank_pairs_sync on chained buckets.
+    rows = [serving.store.get_by_id(i) for i in range(1, CHAIN_PAIRS + 1)]
+    documents = [f"{d.name}: {d.informalization}" for d in rows]
+    query = queries_for(0)[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    single = bf16.rerank_sync(query, documents[:50])
+    single_ms = (time.perf_counter() - t) * 1e3
+    if len(single.scores) != 50 or not np.isfinite(single.scores).all():
+        raise AssertionError(f"rerank_sync gave {len(single.scores)} scores")
+    client = clone_reranker(bf16, bf16.params, batch_size=CHAIN_PAIR_BATCH)
+    pair_queries = [queries_for(1)[i % BATCH] for i in range(CHAIN_PAIRS)]
+    pairs = [client._format_pair(q, d) for q, d in zip(pair_queries, documents)]
+    order = sorted(range(len(pairs)), key=lambda i: len(pairs[i]))
+    chunks = [order[s : s + CHAIN_PAIR_BATCH] for s in range(0, len(order), CHAIN_PAIR_BATCH)]
+    encoded = [encode_batch(client.tokenizer, [pairs[i] for i in c], max_length=client.max_length)
+               for c in chunks]
+    shapes = {}
+    for batch in encoded:
+        shapes[batch.input_ids.shape] = shapes.get(batch.input_ids.shape, 0) + 1
+    if max(shapes.values()) < 16:
+        raise AssertionError(f"bucket shapes {shapes}: no 16 of one shape")
+
+    def per_bucket_loop() -> list[float]:
+        """The earlier rerank_pairs_sync: one rerank_scores call and one
+        copy back a bucket."""
+        out = [0.0] * len(pairs)
+        with torch.no_grad():
+            for chunk, batch in zip(chunks, encoded):
+                scores = qwen3.rerank_scores(
+                    client.params, client.config, client._tensor(batch.input_ids),
+                    client._tensor(batch.attention_mask),
+                    token_true=client.token_true_id, token_false=client.token_false_id,
+                ).cpu().numpy()
+                for i, s in zip(chunk, scores):
+                    out[i] = float(s)
+        return out
+
+    client.rerank_pairs_sync(pair_queries, documents)  # warm
+    with CountLaunches() as launched:
+        t = time.perf_counter()
+        chained = client.rerank_pairs_sync(pair_queries, documents)
+        chained_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loop = per_bucket_loop()
+    loop_s = time.perf_counter() - t
+    differ = sum(a != b for a, b in zip(chained, loop))
+    if differ:
+        raise AssertionError(f"chained scores differ from the per-bucket loop at {differ} pairs")
+    if any(launched.counts.values()):
+        raise AssertionError(f"rerank_pairs_sync launched {launched.counts}")
+    log(
+        f"  rerank_sync of 50 documents {single_ms:.1f} ms; rerank_pairs_sync of "
+        f"{CHAIN_PAIRS} pairs in buckets {shapes}: {CHAIN_PAIRS / chained_s:.1f} pairs/s "
+        f"chained (8 buckets a call) against {CHAIN_PAIRS / loop_s:.1f} for the "
+        f"per-bucket loop, equal bit for bit; {card}"
+    )
 
 
 def run_windowed_search(embedder, dense, card) -> int:
@@ -2201,12 +2434,13 @@ def run_cross_encoder(device, data_dir, card) -> dict:
     os.environ[FLASH_ENV] = "1"
     try:
         with CountLaunches() as launched:
-            t0 = time.perf_counter()
-            losses = []
+            losses, step_s = [], []
             for batch in batches:
+                t0 = time.perf_counter()
                 params, opt_state, metrics = step(params, opt_state, batch)
-                losses.append(float(metrics["loss"]))
-            seconds = time.perf_counter() - t0
+                losses.append(float(metrics["loss"]))  # waits for the step
+                step_s.append(time.perf_counter() - t0)
+            seconds = sum(step_s)
     finally:
         os.environ.pop(FLASH_ENV, None)
     if not all(np.isfinite(losses)):
@@ -2218,7 +2452,8 @@ def run_cross_encoder(device, data_dir, card) -> dict:
         f"{pairs_per_s:.2f} pairs/s over 2 steps; launches {launched.counts}; {card}"
     )
     log(f"  5d: {pairs_per_s:.2f} cross-encoder pairs/s (bf16 backward through the dq and "
-        f"dk/dv kernels); {card}")
+        f"dk/dv kernels); step seconds {[round(x, 4) for x in step_s]} "
+        f"({[round(TRAIN_B / x, 2) for x in step_s]} pairs/s); {card}")
     del params, opt_state
     torch.cuda.empty_cache()
     return launched.counts, pairs_per_s
@@ -2276,6 +2511,21 @@ CHAIN_DIR = Path("runs") / "scale200k"
 CHAIN_CORPUS = dict(n_decls=200_000, n_concepts=6000, n_eval=512, seed=0, body_sentences=5)
 CHAIN_EMB_MAX_LENGTH, CHAIN_RR_MAX_LENGTH, CHAIN_RERANK_TOP = 128, 192, 50
 CHAIN_REFERENCE = {"recall_at_1": 0.9688, "recall_at_10": 0.9883, "mrr_at_10": 0.9785}
+# The cascade arms of the same record, each held to its own row, except
+# 24,8, the kept divergence ROADMAP C6: on the coverage cliff its keep sets
+# turn on P(true) gaps of 1e-5 and less, and the port's equal the JAX
+# client's in f32 on every query whose top-1 the cascade changes
+# (tests/test_torch_rerank_cascade.py), so that arm is logged beside its
+# row and held instead to the committed keep sets of the closest queries
+# (CHAIN_CLIFF, scripts/dump_cascade_divergence.py).
+CHAIN_CASCADE_POINTS = ("48,16", "48,25", "24,8")
+CHAIN_DIVERGENT_ARM = "cascade_24_8"
+CHAIN_CLIFF = CHAIN_DIR / "cascade_24_8_divergence.json"
+CHAIN_CASCADE_REFERENCE = {
+    "cascade_48_16": {"recall_at_1": 0.9648, "recall_at_10": 0.9883, "mrr_at_10": 0.974},
+    "cascade_48_25": {"recall_at_1": 0.9707, "recall_at_10": 0.9883, "mrr_at_10": 0.9785},
+    "cascade_24_8": {"recall_at_1": 0.7773, "recall_at_10": 0.9531, "mrr_at_10": 0.8445},
+}
 CHAIN_QUERY_SLACK, CHAIN_MRR_SLACK = 2, 0.004
 
 
@@ -2344,11 +2594,106 @@ def embed_split(embedder, corpus, seconds: dict, card: str) -> None:
                    split_store=store_s)
 
 
+def eval_arm(engine, corpus, batches: int, point: str | None) -> tuple[dict, float, dict]:
+    """``evaluate_engine`` over the chain's eval queries with every launch
+    count set to 0 before and read after, LEAN_EXPLORE_RERANK_CASCADE set
+    to ``point`` (popped after, and before when None); K1-f32 must launch
+    once per batch of 64 and no other kernel. Returns the metrics, the
+    seconds and the counts."""
+    from lean_explore_tpu_torch.evaluation import evaluate_engine
+
+    os.environ.pop("LEAN_EXPLORE_RERANK_CASCADE", None)
+    if point is not None:
+        os.environ["LEAN_EXPLORE_RERANK_CASCADE"] = point
+    try:
+        with CountLaunches() as launched:
+            t = time.perf_counter()
+            metrics = evaluate_engine(engine, corpus.eval_queries, rerank_top=CHAIN_RERANK_TOP)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+    finally:
+        os.environ.pop("LEAN_EXPLORE_RERANK_CASCADE", None)
+    expect_launches(f"quality eval ({point or 'full'})", launched.counts, "bin_topk", batches)
+    if launched.counts["bin_topk"] != batches:
+        raise AssertionError(f"K1-f32 launched {launched.counts['bin_topk']} times, not {batches}")
+    if metrics["n_queries"] != CHAIN_CORPUS["n_eval"]:
+        raise AssertionError(f"quality eval ran {metrics['n_queries']} queries")
+    return metrics, seconds, launched.counts
+
+
+def hold_to_reference(label, metrics, reference, seconds, counts, batches, card) -> list[str]:
+    """Logs ``metrics`` beside the committed JAX row and returns the keys
+    beyond CHAIN_QUERY_SLACK queries (CHAIN_MRR_SLACK for MRR)."""
+    n = metrics["n_queries"]
+    lines, misses = [], []
+    for key, want in reference.items():
+        got = metrics[key]
+        if key.startswith("recall"):
+            diff = round(got * n) - round(want * n)
+            lines.append(f"{key} {got:.4f} (JAX {want:.4f}, {diff:+d} queries)")
+            if abs(diff) > CHAIN_QUERY_SLACK:
+                misses.append(f"{label} {key}")
+        else:
+            lines.append(f"{key} {got:.4f} (JAX {want:.4f}, {got - want:+.4f})")
+            if abs(got - want) > CHAIN_MRR_SLACK + 1e-9:
+                misses.append(f"{label} {key}")
+    log(
+        f"  {label} over {n} queries at rerank_top {CHAIN_RERANK_TOP}: "
+        f"{'; '.join(lines)}; eval {seconds:.1f} s; K1-f32 launches "
+        f"{counts['bin_topk']} ({batches} batches); {card}"
+    )
+    return misses
+
+
+def check_cliff_keep_sets(reranker, repo: Path, card: str) -> None:
+    """The cascade's stage 1 on the card keeps, for each query of
+    CHAIN_CLIFF, the committed keep set (equal to the JAX client's in f32,
+    tests/test_torch_rerank_cascade.py)."""
+    record = json.loads((repo / CHAIN_CLIFF).read_text())
+    rows = record["queries"]
+    scores = reranker.rerank_grouped_sync(
+        [r["query"] for r in rows], [r["documents"] for r in rows],
+        suffix_cap=record["cap"],
+    )
+    keep = record["keep"]
+    differ = [
+        r["index"] for r, s in zip(rows, scores)
+        if sorted(range(len(s)), key=lambda j: s[j], reverse=True)[:keep] != r["keep"]
+    ]
+    err = max(float(np.abs(np.asarray(s) - r["stage1_scores"]).max()) for r, s in zip(rows, scores))
+    gaps = sorted(r["gap"] for r in rows)
+    log(
+        f"  cascade {record['point']} at the cliff: {len(rows)} queries whose target sits "
+        f"{gaps[0]:.3g}-{gaps[-1]:.3g} in P(true) from the keep boundary; keep sets "
+        f"differing from the committed ones {differ}; stage-1 scores within {err:.3g} of "
+        f"the committed; {card}"
+    )
+    if differ:
+        raise AssertionError(f"stage-1 keep sets at the cliff differ for queries {differ}")
+
+
+def expect_int8_leaves(client) -> None:
+    """Every projection leaf of ``client`` is int8 on the card."""
+    from lean_explore_tpu_torch.models import qwen3
+
+    leaves = {n: w for n, w in client.params["layers"].items() if n in qwen3._INT8_PROJS}
+    if not client.int8 or len(leaves) != 7 or any(
+        w["w8"].dtype != torch.int8 or w["w8"].device.type != "cuda" for w in leaves.values()
+    ):
+        raise AssertionError(
+            f"int8 reranker leaves: {[(n, w['w8'].dtype, w['w8'].device) for n, w in leaves.items()]}"
+        )
+
+
 def run_quality_chain(device, kernels, card, repo: Path) -> None:
     """Phase 6 through scripts/eval_torch_quality.py's stages: build the
     chain's index on the card, then evaluate it with every launch count set
-    to 0 before and read after; K1-f32 must launch once per batch of 64."""
-    from lean_explore_tpu_torch.evaluation import evaluate_engine
+    to 0 before and read after, in five arms: the full pipeline, the
+    cascade at each of CHAIN_CASCADE_POINTS, each held to its row of the
+    committed record, and the int8 reranker (the chain's reranker loaded in
+    bf16 and quantized), gated only on its int8 leaves and launch counts.
+    K1-f32 must launch once per batch of 64 in each arm."""
+    from lean_explore_tpu_torch.search.engine import SearchEngine
     from lean_explore_tpu_torch.train.synthetic import make_corpus
     from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
     from lean_explore_tpu_torch.util.reranker_client import RerankerClient
@@ -2390,38 +2735,53 @@ def run_quality_chain(device, kernels, card, repo: Path) -> None:
             raise AssertionError(f"the eval corpus is {dense.embeddings.dtype} on {dense.device}")
         log(f"  load_index_artifacts {tuple(dense.embeddings.shape)} float32 on the card in {load_s:.1f} s")
         batches = -(-len(corpus.eval_queries) // 64)
-        with CountLaunches() as launched:
-            t = time.perf_counter()
-            metrics = evaluate_engine(engine, corpus.eval_queries, rerank_top=CHAIN_RERANK_TOP)
-            torch.cuda.synchronize()
-            eval_s = time.perf_counter() - t
+        arms = {}
+        for label, point in [("full_pipeline", None)] + [
+            (f"cascade_{p.replace(',', '_')}", p) for p in CHAIN_CASCADE_POINTS
+        ]:
+            arms[label] = eval_arm(engine, corpus, batches, point)
+        int8_reranker = RerankerClient(
+            str(reranker_dir), max_length=CHAIN_RR_MAX_LENGTH, dtype="int8", device=device,
+        )
+        expect_int8_leaves(int8_reranker)
+        int8_engine = SearchEngine(
+            Path(tmp), store=store, artifacts=engine._artifacts, embedding_client=embedder,
+            reranker_client=int8_reranker, device=device,
+        )
+        with CountIntMM() as int_mm:
+            arms["int8_reranker"] = eval_arm(int8_engine, corpus, batches, None)
+        if int_mm.calls == 0:
+            raise AssertionError("the int8 reranker arm never reached torch._int_mm")
         store.close()
-    expect_launches("quality eval", launched.counts, "bin_topk", batches)
-    n = metrics["n_queries"]
-    if n != CHAIN_CORPUS["n_eval"]:
-        raise AssertionError(f"quality eval ran {n} queries")
-    lines, misses = [], []
-    for key, want in CHAIN_REFERENCE.items():
-        got = metrics[key]
-        if key.startswith("recall"):
-            diff = round(got * n) - round(want * n)
-            lines.append(f"{key} {got:.4f} (JAX {want:.4f}, {diff:+d} queries)")
-            if abs(diff) > CHAIN_QUERY_SLACK:
-                misses.append(key)
-        else:
-            lines.append(f"{key} {got:.4f} (JAX {want:.4f}, {got - want:+.4f})")
-            if abs(got - want) > CHAIN_MRR_SLACK + 1e-9:
-                misses.append(key)
-    log(
-        f"  quality over {n} queries at rerank_top {CHAIN_RERANK_TOP}: "
-        f"{'; '.join(lines)}; eval {eval_s:.1f} s; K1-f32 launches "
-        f"{launched.counts['bin_topk']} ({batches} batches); {card}"
-    )
+    metrics, eval_s, counts = arms["full_pipeline"]
+    misses = hold_to_reference("quality", metrics, CHAIN_REFERENCE, eval_s, counts, batches, card)
     log("  " + json.dumps({"quality_chain": metrics, "seconds": {
         **{k: round(v, 3) for k, v in seconds.items()}, "load": round(load_s, 3),
-        "eval": round(eval_s, 3)}, "launches": launched.counts}))
+        "eval": round(eval_s, 3)}, "launches": counts}))
+    for label, reference in CHAIN_CASCADE_REFERENCE.items():
+        arm_metrics, arm_s, arm_counts = arms[label]
+        arm_misses = hold_to_reference(
+            label, arm_metrics, reference, arm_s, arm_counts, batches, card
+        )
+        if label == CHAIN_DIVERGENT_ARM:
+            log(f"  {label}: beyond its TPU row {arm_misses or 'nowhere'} (kept divergence, ROADMAP C6)")
+        else:
+            misses += arm_misses
+    check_cliff_keep_sets(reranker, repo, card)
+    int8_metrics, int8_s, int8_counts = arms["int8_reranker"]
+    log(
+        f"  int8 reranker arm (runs/scale200k reranker loaded in bf16 and quantized; "
+        f"torch._int_mm calls {int_mm.calls}): "
+        + "; ".join(
+            f"{k} {int8_metrics[k]:.4f} ({int8_metrics[k] - metrics[k]:+.4f} against f32)"
+            for k in CHAIN_REFERENCE
+        )
+        + f"; eval {int8_s:.1f} s; K1-f32 launches {int8_counts['bin_topk']}; {card}"
+    )
+    log("  " + json.dumps({"quality_chain_arms": {
+        label: {**m, "seconds": round(t, 3)} for label, (m, t, _) in arms.items()}}))
     by_name = {k["name"]: k for k in kernels}
-    by_name["bin_topk_f32"]["quality_eval_launches"] = launched.counts["bin_topk"]
+    by_name["bin_topk_f32"]["quality_eval_launches"] = counts["bin_topk"]
     if misses:
         raise AssertionError(
             f"quality eval: {misses} beyond {CHAIN_QUERY_SLACK} queries (MRR "

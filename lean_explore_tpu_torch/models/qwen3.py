@@ -12,6 +12,12 @@ are (``hf_loader.params_from_jax``):
     final_norm  [H]
     lm_head     [H, V] or None (tied: embed.T)
 
+Two serving layouts derive from it, as in JAX: ``fuse_params_for_serving``
+(q/k/v as ``qkv_proj``, gate/up as ``gate_up_proj``) and
+``quantize_params_int8`` (each projection an int8 quant dict, multiplied
+by ``torch._int_mm``); every forward projects through ``_proj``, so both
+serve the full forward, ``prefix_kv`` and the grouped suffix forward.
+
 Numerics follow the JAX trunk: matmuls run in the param dtype (bf16 for
 serving) with f32 accumulation; RMSNorm, attention scores, softmax and the
 logits run in f32. Positions are ``arange(T)`` whatever the padding. The
@@ -224,25 +230,168 @@ def _use_flash(seq_len: int, device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+# W8A8 dynamic int8 projections (lean_explore_tpu/models/qwen3.py:720-797):
+# per-output-channel weight scales, per-row activation scales, an int8 x
+# int8 -> int32 product, and everything else (embed, norms, RoPE,
+# attention, the head) in the activation's dtype or f32. Opt-in through
+# RerankerClient(dtype="int8") / LEAN_EXPLORE_RERANKER_INT8=1; serving only.
+_INT8_PROJS = (
+    "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+    "down_proj", "qkv_proj", "gate_up_proj",  # fused serving layout
+)
+# What torch._int_mm takes on CUDA: more than 16 rows, and inner and outer
+# sizes that are positive multiples of 8.
+INT_MM_MIN_ROWS = 17
+INT_MM_MULTIPLE = 8
+
+
+def _max_abs_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """max |x| over ``dim`` / 127, floored at 1e-12, in f32. The divisor is
+    a tensor on x's device: CUDA divides by a Python scalar as a product
+    with its rounded reciprocal, which is not JAX's quotient."""
+    amax = x.abs().amax(dim=dim, keepdim=True)
+    return (amax / torch.full((), 127.0, device=x.device)).clamp_min(1e-12)
+
+
+def quantize_params_int8(params: dict) -> dict:
+    """Per-output-channel int8 quantization of the linear projections.
+
+    Each projection leaf becomes ``{"w8": int8 [L, in, out], "scale": f32
+    [L, 1, out]}`` with JAX's values; the other leaves are unchanged. Each
+    layer's ``w8`` is stored column-major (out-major in memory), the layout
+    in which cuBLAS takes ``torch._int_mm``'s second operand.
+    """
+
+    def quant(w):
+        wf = w.to(torch.float32)
+        scale = _max_abs_scale(wf, -2)
+        w8 = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+        return {"w8": w8.transpose(-1, -2).contiguous().transpose(-1, -2), "scale": scale}
+
+    layers = dict(params["layers"])
+    for name in _INT8_PROJS:
+        if name in layers:  # per-projection or fused serving layout
+            layers[name] = quant(layers[name])
+    return {**params, "layers": layers}
+
+
+def _int_mm(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, N] -> int32 [M, N] through ``torch._int_mm``.
+
+    Rows are zero-padded up to INT_MM_MIN_ROWS and sliced off again, on
+    every device, so the CPU runs what the card runs. An inner or outer
+    size the op cannot take raises; nothing falls back to a float product.
+    """
+    m, k = a8.shape
+    n = w8.shape[1]
+    if k % INT_MM_MULTIPLE or n % INT_MM_MULTIPLE:
+        raise ValueError(
+            f"int8 projection [{k}, {n}]: torch._int_mm needs inner and outer "
+            f"sizes that are multiples of {INT_MM_MULTIPLE}"
+        )
+    if m < INT_MM_MIN_ROWS:
+        a8 = torch.cat([a8, a8.new_zeros(INT_MM_MIN_ROWS - m, k)])
+    return torch._int_mm(a8.contiguous(), w8)[:m]
+
+
+def _linear_q8(h: torch.Tensor, q: dict) -> torch.Tensor:
+    """Dynamic W8A8 linear: h [..., K] @ {w8 [K, N], scale [1, N]}.
+
+    Rows of h are quantized with max-abs scales in f32 (round half to
+    even, clipped to +-127), multiplied in int8 into int32, and rescaled by
+    both scales back to h's dtype, as JAX's ``_linear_q8``.
+    """
+    hf = h.to(torch.float32)
+    a_scale = _max_abs_scale(hf, -1)
+    h8 = torch.clamp(torch.round(hf / a_scale), -127, 127).to(torch.int8)
+    acc = _int_mm(h8.reshape(-1, h8.shape[-1]), q["w8"])
+    acc = acc.reshape(*h8.shape[:-1], acc.shape[-1])
+    return (acc.to(torch.float32) * a_scale * q["scale"]).to(h.dtype)
+
+
+def _proj(h: torch.Tensor, p) -> torch.Tensor:
+    """One linear projection: a dense [in, out] matrix or an int8 quant
+    dict."""
+    if isinstance(p, dict):
+        return _linear_q8(h, p)
+    return h @ p
+
+
+def fuse_params_for_serving(params: dict) -> dict:
+    """Concatenate q/k/v into ``qkv_proj`` [L, H, (NQ+2*NKV)*DH] and
+    gate/up into ``gate_up_proj`` [L, H, 2I]: fewer, larger products from
+    the same activation, each output column the same dot product. Serving
+    only (training and the HF export keep the per-projection layout);
+    quantize after fusing, never before."""
+    layers = dict(params["layers"])
+    if "qkv_proj" in layers:
+        raise ValueError(
+            "params are already fused for serving (qkv_proj present); "
+            "fuse_params_for_serving is not idempotent — fuse the "
+            "per-projection checkpoint once"
+        )
+    for name in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"):
+        if isinstance(layers.get(name), dict):
+            raise ValueError(
+                "fuse_params_for_serving expects dense weights; apply "
+                "quantize_params_int8 after fusing"
+            )
+    layers["qkv_proj"] = torch.cat(
+        [layers.pop("q_proj"), layers.pop("k_proj"), layers.pop("v_proj")], dim=-1
+    )
+    layers["gate_up_proj"] = torch.cat(
+        [layers.pop("gate_proj"), layers.pop("up_proj")], dim=-1
+    )
+    return {**params, "layers": layers}
+
+
+def _qkv(h, p: dict, lead: tuple, nq: int, nkv: int, dh: int):
+    """q, k, v from the fused or the per-projection layout."""
+    if "qkv_proj" in p:
+        q, k, v = torch.split(
+            _proj(h, p["qkv_proj"]), [nq * dh, nkv * dh, nkv * dh], dim=-1
+        )
+    else:
+        q, k, v = (_proj(h, p[name]) for name in ("q_proj", "k_proj", "v_proj"))
+    return (
+        q.reshape(*lead, nq, dh),
+        k.reshape(*lead, nkv, dh),
+        v.reshape(*lead, nkv, dh),
+    )
+
+
+def _mlp(h, p: dict):
+    """SwiGLU MLP from the fused or the per-projection layout."""
+    if "gate_up_proj" in p:
+        gate, up = torch.chunk(_proj(h, p["gate_up_proj"]), 2, dim=-1)
+    else:
+        gate, up = _proj(h, p["gate_proj"]), _proj(h, p["up_proj"])
+    return _proj(torch.nn.functional.silu(gate) * up, p["down_proj"])
+
+
 def _layer_params(params: dict, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer ``i``'s leaves; an int8 projection's quant dict is indexed
+    inside (``{"w8": w8[i], "scale": scale[i]}``)."""
+    return {
+        name: (
+            {k: leaf[i] for k, leaf in w.items()} if isinstance(w, dict) else w[i]
+        )
+        for name, w in params["layers"].items()
+    }
 
 
 def _layer_body(x, p, *, lead, nq, nkv, dh, eps, rope, attend):
     """One transformer layer; returns (new_x, (k_rotated, v)). The full
     forward, the prefix-KV builder and the suffix scorer share it, as in the
-    JAX trunk."""
+    JAX trunk, and every projection goes through ``_proj``, so the fused
+    and the int8 layouts serve all three."""
     h = _rms_norm(x, p["input_norm"], eps)
-    q = (h @ p["q_proj"]).reshape(*lead, nq, dh)
-    k = (h @ p["k_proj"]).reshape(*lead, nkv, dh)
-    v = (h @ p["v_proj"]).reshape(*lead, nkv, dh)
+    q, k, v = _qkv(h, p, lead, nq, nkv, dh)
     q = rope(_rms_norm(q, p["q_norm"], eps))
     k = rope(_rms_norm(k, p["k_norm"], eps))
-    x = x + attend(q, k, v) @ p["o_proj"]
+    x = x + _proj(attend(q, k, v), p["o_proj"])
     h = _rms_norm(x, p["post_norm"], eps)
-    gate = h @ p["gate_proj"]
-    up = h @ p["up_proj"]
-    return x + (torch.nn.functional.silu(gate) * up) @ p["down_proj"], (k, v)
+    return x + _mlp(h, p), (k, v)
 
 
 def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool, flash=False):
@@ -361,6 +510,21 @@ def rerank_scores(
     pooled = _pool_last(hidden, attention_mask)
     pair = _pair_logits(params, pooled, token_false, token_true)
     return torch.softmax(pair, dim=1)[:, 1]
+
+
+@torch.no_grad()
+def rerank_scores_chained(
+    params, config, input_ids, attention_mask, *, token_true: int, token_false: int
+) -> torch.Tensor:
+    """``rerank_scores`` over G stacked same-shape buckets: [G, B, T] ->
+    [G, B] f32, with no host sync inside, so row g equals the separate call
+    on bucket g bit for bit (JAX's is one ``lax.scan`` dispatch)."""
+    return torch.stack([
+        rerank_scores(
+            params, config, ids, mask, token_true=token_true, token_false=token_false
+        )
+        for ids, mask in zip(input_ids, attention_mask)
+    ])
 
 
 @torch.no_grad()

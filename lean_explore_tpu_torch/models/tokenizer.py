@@ -6,7 +6,8 @@ length) buckets, pad rows keeping one valid token. The tokenizer itself is
 a pure-Python reader of a HuggingFace ``tokenizer.json`` whose model is
 ``WordLevel`` and whose pre-tokenizers are ``Whitespace`` and
 ``CharDelimiterSplit`` (alone or in a ``Sequence``): the kind every
-committed checkpoint carries. Any other model type raises.
+committed checkpoint carries. Any other model type, a normalizer or a
+post-processor raises.
 """
 
 import json
@@ -85,6 +86,13 @@ class WordLevelTokenizer:
             )
         if spec.get("normalizer") is not None:
             raise ValueError("tokenizer normalizers are not supported")
+        if spec.get("post_processor") is not None:
+            # Encodes, and _truncate_docs' add_special_tokens=False, are only
+            # HF's when no post-processor adds tokens.
+            raise ValueError(
+                f"unsupported tokenizer post-processor "
+                f"{spec['post_processor'].get('type')!r}: it is not applied"
+            )
         self.vocab: dict[str, int] = dict(model["vocab"])
         self._decoder = spec.get("decoder")
         self._pre = pre_tokenizer(spec.get("pre_tokenizer"))
@@ -141,6 +149,8 @@ class WordLevelTokenizer:
         padding: bool = False,
         add_special_tokens: bool = True,
     ) -> dict:
+        """HF's call surface. ``add_special_tokens`` changes nothing: only a
+        post-processor adds special tokens, and one raises at load."""
         if padding:
             raise ValueError("padding is done by encode_batch")
         single = isinstance(texts, str)

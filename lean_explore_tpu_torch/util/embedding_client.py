@@ -102,6 +102,10 @@ class EmbeddingClient:
             dtype: Parameter dtype (bf16 serving, f32 parity).
             query_prompt: Override the asymmetric query prefix.
             append_eos: Append EOS before pooling (Qwen3 embedding models).
+            device: Where the params live; CUDA unless the CPU is asked for.
+
+        LEAN_EXPLORE_FUSED_QKV=1 serves the fused projection layout
+        (``qwen3.fuse_params_for_serving``).
         """
         resolved = Path(model_dir) if model_dir else resolve_model_dir(model_name)
         if batch_size is not None and batch_size <= 0:
@@ -111,6 +115,9 @@ class EmbeddingClient:
         params, config = load_params(
             resolved, dtype=dtype, device=resolve_device(device)
         )
+        if os.getenv("LEAN_EXPLORE_FUSED_QKV") == "1":
+            # Column-exact fusion of q/k/v and gate/up, as the JAX client.
+            params = qwen3_mod.fuse_params_for_serving(params)
         self._init(
             params,
             config,

@@ -1,13 +1,16 @@
-"""Full-pipeline retrieval quality through the PyTorch port.
+"""Retrieval quality of the full pipeline and the rerank cascade through the
+PyTorch port.
 
-The port's counterpart of the ``full_pipeline`` arm of
-scripts/eval_cascade.py, with its flags: build the synthetic corpus, embed
-every informalization with a float32 embedder, build the index artifacts
-through the port (or take an existing artifact directory with --data-dir),
-load them with a float32 corpus, and measure recall@1, recall@10 and
-MRR@10 of ``SearchEngine.search_batch`` over the held-out eval queries
-with a float32 reranker. Prints one JSON line: the task, the metrics and
-the seconds of each stage.
+The port's counterpart of scripts/eval_cascade.py, with its flags: build
+the synthetic corpus, embed every informalization with a float32 embedder,
+build the index artifacts through the port (or take an existing artifact
+directory with --data-dir), load them with a float32 corpus, and measure
+recall@1, recall@10 and MRR@10 of ``SearchEngine.search_batch`` over the
+held-out eval queries with a float32 reranker: first the full pipeline,
+then each cascade point of --points on the same engine
+(LEAN_EXPLORE_RERANK_CASCADE set to the point, and popped after), each arm
+under eval_cascade.py's label (``cascade_48_25``, ...). Prints one JSON
+line: the task, the metrics and the seconds of each stage and arm.
 
 The 200k chain (runs/scale200k; embedder serving length 128 and reranker
 rescore length 192, docs/training.md "Config-5 scale" and
@@ -19,8 +22,8 @@ runs/scale200k/trunc_probe.json):
         --n-decls 200000 --n-concepts 6000 --body-sentences 5 \\
         --emb-max-length 128 --rr-max-length 192
 
-Runs on CUDA unless ``--device cpu``. The cascade arms of eval_cascade.py
-wait for the port's rerank cascade (ROADMAP A4).
+The chain's committed cascade record (runs/scale200k/cascade_eval.json)
+adds ``--points 48,16 48,25 24,8``. Runs on CUDA unless ``--device cpu``.
 """
 
 import argparse
@@ -46,6 +49,10 @@ from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient  # noqa
 from lean_explore_tpu_torch.util.reranker_client import RerankerClient  # noqa: E402
 
 EMBED_BATCH = 256
+CASCADE_ENV = "LEAN_EXPLORE_RERANK_CASCADE"
+# eval_cascade.py's default sweep, spanning the coverage cliff measured on
+# the 22-word corpus.
+DEFAULT_POINTS = ("32,16", "32,8", "24,12", "16,12", "12,8", "12,25")
 
 
 def log(msg: str) -> None:
@@ -71,9 +78,45 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         "the index; the corpus flags still make the eval queries and must "
         "match it",
     )
+    parser.add_argument(
+        "--points", type=str, nargs="+", default=list(DEFAULT_POINTS),
+        help="cascade operating points as '<cap>,<keep>'",
+    )
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    for p in args.points:  # fail in milliseconds, not after the embed pass
+        try:
+            cap, keep = (int(x) for x in p.split(","))
+            if cap <= 0 or keep <= 0:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(
+                f"--points entry {p!r} must be '<cap>,<keep>' positive ints"
+            ) from None
+    return args
+
+
+def evaluate_arms(engine, labeled, rerank_top: int, points) -> tuple[dict, dict]:
+    """``evaluate_engine`` of the full pipeline, then of each cascade point
+    with LEAN_EXPLORE_RERANK_CASCADE set to it; the variable is popped after
+    each arm and before the first. Returns the metrics and the seconds of
+    each arm, under eval_cascade.py's labels."""
+    results, seconds = {}, {}
+    arms = [("full_pipeline", None)] + [(f"cascade_{p.replace(',', '_')}", p) for p in points]
+    try:
+        for label, point in arms:
+            if point is None:
+                os.environ.pop(CASCADE_ENV, None)
+            else:
+                os.environ[CASCADE_ENV] = point
+            t = time.perf_counter()
+            results[label] = evaluate_engine(engine, labeled, rerank_top=rerank_top)
+            seconds[label] = time.perf_counter() - t
+            log(f"{label}: {json.dumps(results[label])}")
+    finally:
+        os.environ.pop(CASCADE_ENV, None)
+    return results, seconds
 
 
 def build_index(corpus, embedder, work: Path) -> tuple[DeclarationStore, dict]:
@@ -114,11 +157,6 @@ def open_engine(work: Path, store, embedder, reranker, device) -> tuple[SearchEn
 
 def main(argv: list[str] | None = None) -> dict:
     args = parse_args(argv)
-    if os.environ.get("LEAN_EXPLORE_RERANK_CASCADE"):
-        raise SystemExit(
-            "LEAN_EXPLORE_RERANK_CASCADE is set: the port has no rerank "
-            "cascade yet (ROADMAP A4); unset it to measure the full pipeline"
-        )
     device = torch.device(args.device)
     seconds = {}
     t = time.perf_counter()
@@ -149,9 +187,11 @@ def main(argv: list[str] | None = None) -> dict:
             store, built = build_index(corpus, embedder, work)
             seconds.update(built)
         engine, seconds["load"] = open_engine(work, store, embedder, reranker, device)
-        t = time.perf_counter()
-        row = evaluate_engine(engine, corpus.eval_queries, rerank_top=args.rerank_top)
-        seconds["eval"] = time.perf_counter() - t
+        results, arm_seconds = evaluate_arms(
+            engine, corpus.eval_queries, args.rerank_top, args.points
+        )
+        seconds["eval"] = arm_seconds.pop("full_pipeline")
+        seconds.update({f"eval_{label}": s for label, s in arm_seconds.items()})
         store.close()
 
     report = {
@@ -159,6 +199,7 @@ def main(argv: list[str] | None = None) -> dict:
             "n_decls": args.n_decls, "n_concepts": args.n_concepts,
             "n_eval": args.n_eval, "body_sentences": args.body_sentences,
             "seed": args.seed, "rerank_top": args.rerank_top,
+            "points": args.points,
             "emb_max_length": args.emb_max_length,
             "rr_max_length": args.rr_max_length,
             "embedder": str(args.embedder), "reranker": str(args.reranker),
@@ -167,7 +208,7 @@ def main(argv: list[str] | None = None) -> dict:
             "device": torch.cuda.get_device_name(device)
             if device.type == "cuda" else "cpu",
         },
-        "results": {"full_pipeline": row},
+        "results": results,
         "seconds": {k: round(v, 3) for k, v in seconds.items()},
     }
     if args.out is not None:

@@ -11,6 +11,7 @@ these results.
 
 import asyncio
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
 from lean_explore_tpu_torch.util.reranker_client import RerankerClient
 from tests.helpers import make_tiny_model_dir
 
+REPO = Path(__file__).resolve().parent.parent
 WORDS = [
     "nat", "add", "mul", "list", "map", "comm", "sum", "prime", "function",
     "continuous", "addition", "multiplication", "element", "numbers",
@@ -82,12 +84,12 @@ def setup(tmp_path_factory):
     return data, embed_dir, rerank_dir
 
 
-def _jax_service(data, embed_dir, rerank_dir, dense_dtype="float32"):
+def _jax_service(data, embed_dir, rerank_dir, dense_dtype="float32", rerank_dtype="float32"):
     engine = JaxEngine(
         data,
         embedding_client=JaxEmbedder(str(embed_dir), model_dir=embed_dir, dtype="float32"),
         reranker_client=JaxReranker(
-            str(rerank_dir), model_dir=rerank_dir, dtype="float32", max_length=256
+            str(rerank_dir), model_dir=rerank_dir, dtype=rerank_dtype, max_length=256
         ),
         dense_dtype=dense_dtype,
         preload_metadata=True,
@@ -95,14 +97,14 @@ def _jax_service(data, embed_dir, rerank_dir, dense_dtype="float32"):
     return JaxService(engine)
 
 
-def _torch_service(data, embed_dir, rerank_dir, dense_dtype="float32"):
+def _torch_service(data, embed_dir, rerank_dir, dense_dtype="float32", rerank_dtype=torch.float32):
     engine = SearchEngine(
         data,
         embedding_client=EmbeddingClient(
             str(embed_dir), model_dir=embed_dir, dtype=torch.float32, device="cpu"
         ),
         reranker_client=RerankerClient(
-            str(rerank_dir), model_dir=rerank_dir, dtype=torch.float32,
+            str(rerank_dir), model_dir=rerank_dir, dtype=rerank_dtype,
             max_length=256, device="cpu",
         ),
         dense_dtype=dense_dtype,
@@ -112,14 +114,44 @@ def _torch_service(data, embed_dir, rerank_dir, dense_dtype="float32"):
     return Service(engine)
 
 
-@pytest.mark.parametrize("rerank_top", [50, 0])
-def test_search_batch_same_ids_as_jax(setup, rerank_top):
-    want = asyncio.run(
-        _jax_service(*setup).search_batch(QUERIES, rerank_top=rerank_top)
-    )
-    got = asyncio.run(
-        _torch_service(*setup).search_batch(QUERIES, rerank_top=rerank_top)
-    )
+@pytest.mark.parametrize(
+    "rerank_top,env",
+    [
+        (50, {}),
+        (0, {}),
+        (50, {"LEAN_EXPLORE_RERANK_CASCADE": "4,2"}),
+        (50, {"LEAN_EXPLORE_RERANKER_INT8": "1"}),
+        (50, {"LEAN_EXPLORE_FUSED_QKV": "1"}),
+    ],
+    ids=["50", "0", "cascade_4_2", "int8_reranker", "fused_qkv"],
+)
+def test_search_batch_same_ids_as_jax(setup, monkeypatch, rerank_top, env):
+    """Each variable is read by both packages: the cascade per rerank call,
+    the int8 reranker and the fused projections of both clients at load.
+
+    The int8 reranker loads bf16 and quantizes (both clients take
+    dtype=None), so its trunk runs in bf16, where the two packages round
+    differently (XLA on the CPU keeps f32 inside its fusions; the port
+    rounds each op): P(true) differs by up to 1.2e-3. The tiny random
+    reranker scores every pair within a few hundredths of 0.5, and such a
+    difference reordered 2-3 of the 7 queries' results, int8 or plain bf16
+    alike. That case therefore scores with the committed trained reranker
+    (runs/reranker/checkpoint), whose scores the bf16 rounding does not
+    reorder."""
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    int8 = "LEAN_EXPLORE_RERANKER_INT8" in env
+    if int8:
+        setup = (*setup[:2], REPO / "runs" / "reranker" / "checkpoint")
+    jax_service = _jax_service(*setup, rerank_dtype=None if int8 else "float32")
+    service = _torch_service(*setup, rerank_dtype=None if int8 else torch.float32)
+    reranker = service.engine.reranker_client
+    assert reranker.int8 == int8
+    fused = "LEAN_EXPLORE_FUSED_QKV" in env
+    for client in (reranker, service.engine.embedding_client):
+        assert ("qkv_proj" in client.params["layers"]) == fused
+    want = asyncio.run(jax_service.search_batch(QUERIES, rerank_top=rerank_top))
+    got = asyncio.run(service.search_batch(QUERIES, rerank_top=rerank_top))
     assert len(got) == len(want) == len(QUERIES)
     for g, w in zip(got, want):
         assert g.query == w.query

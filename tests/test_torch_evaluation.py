@@ -7,14 +7,17 @@ and packed by the port's ``build_indices``. The JAX and the port engines,
 each with its own float32 clients on the committed checkpoints, then
 evaluate the held-out queries on that one artifact directory:
 ``evaluate_engine`` must give equal recall@1, recall@10 and MRR@10, and
-``search_batch`` the same top-1 name for every query. The JAX embedding
-stage's rows agree with the port's within the trunk tolerance of
-tests/test_torch_qwen3.py (1e-5).
+``search_batch`` the same top-1 name for every query, with the full
+rerank and under a cascade arm (LEAN_EXPLORE_RERANK_CASCADE=24,8, the
+chain's point on the coverage cliff; at rerank_top 20 it prunes 12 of 20).
+The JAX embedding stage's rows agree with the port's within the trunk
+tolerance of tests/test_torch_qwen3.py (1e-5).
 """
 
 import asyncio
 import importlib.util
 import json
+import os
 import shutil
 from pathlib import Path
 
@@ -45,6 +48,7 @@ EMBEDDER, RERANKER = CHAIN / "embedder" / "checkpoint", CHAIN / "reranker" / "ch
 # The chain's serving lengths (docs/training.md, runs/scale200k/trunc_probe.json).
 EMB_MAX_LENGTH, RR_MAX_LENGTH = 128, 192
 RERANK_TOP = 20
+CASCADE_POINT = "24,8"
 
 
 @pytest.fixture(scope="module")
@@ -102,6 +106,38 @@ def jax_metrics(chain, jax_engine):
     )
 
 
+@pytest.fixture(scope="module")
+def jax_cascade_metrics(chain, jax_engine):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LEAN_EXPLORE_RERANK_CASCADE", CASCADE_POINT)
+        return jax_evaluation.evaluate_engine(
+            jax_engine, chain[0].eval_queries, rerank_top=RERANK_TOP, batch=8
+        )
+
+
+def test_evaluate_engine_same_metrics_under_a_cascade_arm(
+    chain, jax_cascade_metrics, monkeypatch
+):
+    corpus, root, port_embedder, _ = chain
+    reranker = RerankerClient(
+        str(RERANKER), max_length=RR_MAX_LENGTH, dtype=torch.float32, device="cpu"
+    )
+    port = SearchEngine(
+        root / "index", embedding_client=port_embedder, dense_dtype="float32",
+        device="cpu", reranker_client=reranker,
+    )
+    keeps = []
+    cascade = reranker.rerank_grouped_cascade_sync
+    monkeypatch.setattr(
+        reranker, "rerank_grouped_cascade_sync",
+        lambda q, d, **kw: keeps.append(kw) or cascade(q, d, **kw),
+    )
+    monkeypatch.setenv("LEAN_EXPLORE_RERANK_CASCADE", CASCADE_POINT)
+    got = evaluation.evaluate_engine(port, corpus.eval_queries, rerank_top=RERANK_TOP, batch=8)
+    assert got == jax_cascade_metrics
+    assert keeps and all(kw == dict(stage1_doc_tokens=24, keep=8) for kw in keeps)
+
+
 def test_evaluate_engine_same_metrics_and_top1_as_jax(chain, jax_engine, jax_metrics):
     corpus, root, port_embedder, _ = chain
     port = SearchEngine(
@@ -122,10 +158,10 @@ def test_evaluate_engine_same_metrics_and_top1_as_jax(chain, jax_engine, jax_met
     assert [r[0].name for r in port_top] == [r[0].name for r in jax_top]
 
 
-def test_eval_script_gives_jax_s_metrics_on_the_cpu(jax_metrics):
+def test_eval_script_gives_jax_s_metrics_on_the_cpu(jax_metrics, jax_cascade_metrics):
     """scripts/eval_torch_quality.py rebuilds the same corpus through the
     port (store, embed, build_indices, load) and measures the JAX engine's
-    numbers."""
+    numbers, with the full rerank and under the cascade point."""
     spec = importlib.util.spec_from_file_location(
         "eval_torch_quality", REPO / "scripts" / "eval_torch_quality.py"
     )
@@ -136,9 +172,11 @@ def test_eval_script_gives_jax_s_metrics_on_the_cpu(jax_metrics):
         "--n-decls", "150", "--n-concepts", "6000", "--n-eval", "16",
         "--body-sentences", "5", "--emb-max-length", str(EMB_MAX_LENGTH),
         "--rr-max-length", str(RR_MAX_LENGTH), "--rerank-top", str(RERANK_TOP),
-        "--device", "cpu",
+        "--device", "cpu", "--points", CASCADE_POINT,
     ])
     assert report["results"]["full_pipeline"] == jax_metrics
+    assert report["results"]["cascade_24_8"] == jax_cascade_metrics
+    assert "LEAN_EXPLORE_RERANK_CASCADE" not in os.environ
     assert report["task"]["emb_max_length"] == EMB_MAX_LENGTH
     assert report["task"]["rr_max_length"] == RR_MAX_LENGTH
     assert {"store", "embed", "embed_docs_per_s", "build", "load", "eval"} <= set(
@@ -211,6 +249,36 @@ def test_chip_smoke_holds_phase_6_to_the_committed_record():
     assert chip_smoke.chain_checkpoints(REPO) == (EMBEDDER, RERANKER)
     with pytest.raises(FileNotFoundError, match="committed checkpoint"):
         chip_smoke.chain_checkpoints(REPO / "no_such_dir")
+
+
+def test_chip_smoke_holds_the_cascade_arms_to_the_committed_record():
+    """Phase 6's cascade arms: the points of the committed record, each held
+    to its own row."""
+    import chip_smoke
+
+    rows = json.loads((CHAIN / "cascade_eval.json").read_text())["results"]
+    assert chip_smoke.CHAIN_CASCADE_POINTS == ("48,16", "48,25", "24,8")
+    assert chip_smoke.CHAIN_CASCADE_REFERENCE == {
+        f"cascade_{p.replace(',', '_')}": {
+            k: rows[f"cascade_{p.replace(',', '_')}"][k] for k in chip_smoke.CHAIN_REFERENCE
+        }
+        for p in chip_smoke.CHAIN_CASCADE_POINTS
+    }
+    assert set(chip_smoke.CHAIN_CASCADE_REFERENCE) | {"full_pipeline"} == set(rows)
+    cliff = json.loads((REPO / chip_smoke.CHAIN_CLIFF).read_text())
+    assert chip_smoke.CHAIN_DIVERGENT_ARM == f"cascade_{cliff['point'].replace(',', '_')}"
+    assert (cliff["cap"], cliff["keep"], cliff["rr_max_length"]) == (24, 8, RR_MAX_LENGTH)
+
+
+@pytest.mark.parametrize("points", [["48"], ["0,8"], ["a,b"], ["48,25", "4,-1"]])
+def test_eval_script_rejects_a_bad_point_at_once(points):
+    spec = importlib.util.spec_from_file_location(
+        "eval_torch_quality", REPO / "scripts" / "eval_torch_quality.py"
+    )
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with pytest.raises(SystemExit, match="must be '<cap>,<keep>' positive ints"):
+        script.parse_args(["--points", *points])
 
 
 def test_evaluate_engine_needs_labeled_pairs():

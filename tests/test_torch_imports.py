@@ -12,9 +12,10 @@ HF export of the trained params, a top-k through the pipelined bin-max
 entry (``ops.bin_topk_pipelined``, K1's plain twin on the CPU), the index
 build (a synthetic corpus and its WordLevel tokenizer, ``DenseIndex.save``,
 the extract CLI's ``--embed --index --use-latest`` on the exported
-checkpoint, ``evaluate_engine``) and ``scripts/eval_torch_quality.py`` at a
-tiny size, and then reports which of the forbidden modules are in
-``sys.modules``.
+checkpoint, ``evaluate_engine``), a search under the rerank cascade, the
+fused int8 reranker's ``rerank_sync`` and ``scripts/eval_torch_quality.py``
+(its full and cascade arms) at a tiny size, and then reports which of the
+forbidden modules are in ``sys.modules``.
 """
 
 import json
@@ -148,6 +149,15 @@ built = SearchEngine(extraction, embedding_client=embedder, reranker_client=rera
 guard_store_vocab(built.store, tokenizer)
 metrics = evaluate_engine(built, [("nat add", names[0])], rerank_top=5)
 assert metrics["n_queries"] == 1, metrics
+os.environ["LEAN_EXPLORE_RERANK_CASCADE"] = "4,2"
+out = asyncio.run(Service(built).search_batch(["nat add", "list map comm"], rerank_top=5))
+assert all(r.count > 0 for r in out), [r.count for r in out]
+del os.environ["LEAN_EXPLORE_RERANK_CASCADE"]
+int8_reranker = RerankerClient.from_components(
+    qwen3.quantize_params_int8(qwen3.fuse_params_for_serving(reranker.params)),
+    config, tokenizer, max_length=64, int8=True,
+)
+assert len(int8_reranker.rerank_sync("nat add", names[:5]).scores) == 5
 
 corpus = synthetic.make_corpus(n_decls=40, n_concepts=20, n_eval=4)
 model_dir = Path(f"{tmp}/synthetic_model")
@@ -167,6 +177,7 @@ report = script.main([
     "--rr-max-length", "64", "--rerank-top", "5", "--device", "cpu",
 ])
 assert report["results"]["full_pipeline"]["n_queries"] == 4, report
+assert len(report["results"]) == 7, report["results"].keys()
 print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
 """
 

@@ -92,3 +92,34 @@ def test_other_models_raise():
 def test_buckets():
     assert [bucket_batch(n) for n in (1, 3, 100, 129)] == [1, 4, 128, 256]
     assert [bucket_length(n, 256) for n in (5, 33, 300)] == [32, 64, 256]
+
+
+@pytest.mark.parametrize("model_dir", TOKENIZER_DIRS)
+def test_decode_matches_transformers(model_dir):
+    """The reranker cascade's ``_truncate_docs`` decodes capped documents:
+    the port's strings must be HF's for every committed tokenizer."""
+    from transformers import AutoTokenizer
+
+    hf = AutoTokenizer.from_pretrained(str(REPO / model_dir), local_files_only=True)
+    ours = load_tokenizer(REPO / model_dir)
+    for row in ours(TEXTS, truncation=True, max_length=48)["input_ids"]:
+        assert ours.decode(row) == hf.decode(row)
+
+
+def test_a_post_processor_raises(tmp_path):
+    """A post-processor adds tokens that the reader would not: it raises at
+    load instead of encoding without them."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"<unk>": 0, "<eos>": 1, "a": 2}
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.post_processor = processors.TemplateProcessing(
+        single="$A <eos>", special_tokens=[("<eos>", 1)]
+    )
+    tok.save(str(tmp_path / "tokenizer.json"))
+    hf = PreTrainedTokenizerFast(tokenizer_file=str(tmp_path / "tokenizer.json"))
+    assert hf("a a")["input_ids"] == [2, 2, 1]
+    with pytest.raises(ValueError, match="post-processor 'TemplateProcessing'"):
+        WordLevelTokenizer.from_file(tmp_path / "tokenizer.json")
