@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --kernels  # phases 1-3b only (build + kernel checks)
+    python3 chip_smoke.py --training-chain [--seed N]  # phases 1, 2 and 7
 
 Phases, each announced before it starts and timed after it ends:
 
@@ -109,8 +110,34 @@ Phases, each announced before it starts and timed after it ends:
    ``SearchEngine(data_dir, device="cuda")`` built the same default way.
    A child that exits non-zero, prints outside its protocol or times out
    fails the phase, with the tail of its stderr.
+7. train both models end to end at the committed 20k chain's task and
+   widths (runs/embedder/eval.json, runs/reranker/eval.json: 20,000
+   declarations, 1,200 concepts, 512 held-out queries) with the port's
+   scripts, in-process: scripts/train_torch_embedder_e2e.py at 384 x 6,
+   3000 steps, --paraphrases, then scripts/train_torch_reranker_e2e.py at
+   4000 steps on the embedder it trained (every other flag at its
+   default, --seed 0 unless ``--seed`` says otherwise; both start from
+   the JAX package's init at that seed, the scripts' draw). At seed 0
+   the task data must equal the records (train split, padded
+   vocabularies, the reranker's examples), the trained embedder must land
+   within 4 queries of 512 of the JAX script's own float32 run from the
+   same init (runs/jax_f32_cpu/embedder_eval.json), and each one-sided
+   floor set from the committed JAX numbers (a TPU run) must hold where
+   the JAX scripts' own float32 runs from that init meet it; the floors
+   they miss are logged (ROADMAP C7). At every seed BM25 alone and the
+   random inits must stay near zero; at another seed the floors are
+   logged. A torch.profiler trace of each trainer's last 20 steps gives
+   the device's busy share of a step.
+   K1-f32 must launch once per batch of 64 in every eval arm with a
+   dense stage and no other kernel, and no kernel may launch during the
+   training steps (every length <= 128, under flash attention's 256); the
+   trained geometry's K1-f32 top-10 must equal its plain twin's where
+   scores are untied and overlap the exact scan's >= 0.97. Logged beside
+   the card: each trainer's pairs/s after its first 100 steps, the
+   loader's share of a step, peak memory, embedding docs/s and each eval
+   arm's seconds.
 Every kernel's launch count is set to 0 just before each path of phases
-3b, 4, 4g, 5 and 6 is driven and read just after it.
+3b, 4, 4g, 5, 6 and 7 is driven and read just after it.
 
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure raises, so the run exits non-zero with its
@@ -1293,6 +1320,12 @@ def main() -> int:
     parser.add_argument(
         "--kernels", action="store_true", help="build and check kernels only"
     )
+    parser.add_argument(
+        "--training-chain", action="store_true",
+        help="phases 1, 2 and 7 only: build the kernels, then train and "
+        "evaluate the 20k chain",
+    )
+    parser.add_argument("--seed", type=int, default=0, help="phase 7's --seed")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1325,6 +1358,14 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "smem" in line:
                     log(f"  {name}: {line.strip()}")
 
+    if args.training_chain:
+        kernels = [{"name": "bin_topk_f32"}]
+        with Phase("7. training end to end at the 20k chain"):
+            run_training_chain(device, kernels, card, repo, args.seed)
+        log(json.dumps({"kernels": kernels}))
+        log(json.dumps(device_record()))
+        return 0
+
     with Phase("kernels against their plain versions"):
         kernels = [
             check_bin_topk(device),
@@ -1354,21 +1395,24 @@ def main() -> int:
             run_training(device, kernels, card)
         with Phase("6. index build and quality at the 200k chain"):
             run_quality_chain(device, kernels, card, repo)
+        with Phase("7. training end to end at the 20k chain"):
+            run_training_chain(device, kernels, card, repo, args.seed)
 
     log(json.dumps({"kernels": kernels}))
-    log(
-        json.dumps(
-            {
-                "ok": True,
-                "device": {
-                    "platform": "gpu",
-                    "kind": torch.cuda.get_device_name(0),
-                    "count": torch.cuda.device_count(),
-                },
-            }
-        )
-    )
+    log(json.dumps(device_record()))
     return 0
+
+
+def device_record() -> dict:
+    """The last line's record of the card the run used."""
+    return {
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }
 
 
 # ----------------------------------------------------------------------
@@ -3300,6 +3344,341 @@ def run_quality_chain(device, kernels, card, repo: Path) -> None:
     for forbidden in ("jax", "lean_explore_tpu"):
         if forbidden in sys.modules:
             raise AssertionError(f"{forbidden} was imported on the index-build path")
+
+
+# ----------------------------------------------------------------------
+# Phase 7: training end to end at the 20k chain
+# ----------------------------------------------------------------------
+
+# The committed runs' task and widths (runs/embedder/eval.json,
+# runs/reranker/eval.json: 20,000 declarations, 1,200 concepts, 512
+# held-out queries; embedder 384 x 6, 3000 steps, --paraphrases; reranker
+# 256 x 4, 4000 steps), every other flag at the scripts' defaults.
+E2E_EMBEDDER_ARGS = ["--hidden-size", "384", "--num-layers", "6", "--steps", "3000", "--paraphrases"]
+E2E_RERANKER_ARGS = ["--steps", "4000"]
+E2E_N_EVAL, E2E_EVAL_BATCH = 512, 64
+# Their deterministic task data at seed 0, which the port's must equal:
+# the train split, the padded vocabularies and the reranker's examples.
+E2E_TASK = {
+    ("embedder", "n_train_decls"): 16000,
+    ("embedder", "vocab_size"): 2440,
+    ("reranker", "vocab_size"): 2448,
+    ("reranker", "n_examples"): 119628,
+    ("reranker", "n_positive"): 39876,
+}
+# Ceilings held at every seed: BM25 alone and the random inits stay near
+# zero, as in the committed JAX runs: (report, path, bound, the committed
+# value).
+E2E_CEILINGS = (
+    ("embedder", ("results", "trained", "bm25_only", "recall_at_10"), 0.05, 0.0),
+    ("embedder", ("results", "random_init", "dense_only", "recall_at_10"), 0.05, 0.0059),
+    ("reranker", ("reranker_direct", "random_init", "recall_at_1_of_50"), 0.10, 0.0312),
+)
+# One-sided floors from the committed JAX runs, a TPU's (float32 products
+# at the TPU's default precision): (report, path, floor, the committed
+# value, the JAX script's own float32 run from the same init). At seed 0
+# a floor is held where that float32 run meets it, and logged where it
+# does not (ROADMAP C7); at another seed no reference run exists, and
+# every floor is logged.
+E2E_FLOORS = (
+    ("embedder", ("results", "trained", "dense_only", "recall_at_10"), 0.9785 - 10 / 512, 0.9785, 0.9609),
+    ("embedder", ("results", "trained", "dense_only", "recall_at_1"), 0.8984 - 20 / 512, 0.8984, 0.8574),
+    ("embedder", ("results", "trained", "dense_only", "mrr_at_10"), 0.9289 - 0.03, 0.9289, 0.8971),
+    ("embedder", ("results", "trained", "hybrid", "recall_at_10"), 0.9688 - 10 / 512, 0.9688, 0.9551),
+    ("reranker", ("reranker_direct", "trained", "recall_at_1_of_50"), 0.832 - 0.05, 0.832, 0.6738),
+    ("reranker", ("pipeline", "full_pipeline_trained", "recall_at_10"), 0.9902 - 10 / 512, 0.9902, 0.9805),
+    ("reranker", ("pipeline", "full_pipeline_trained", "recall_at_1"), 0.8105 - 0.05, 0.8105, 0.457),
+)
+# What the trained embedder is held to at seed 0, either way within
+# E2E_SAME_INIT_SLACK: the JAX script's own float32 run from the same
+# init, PRNGKey(0), which the port's draw repeats
+# (runs/jax_f32_cpu/embedder_eval.json: scripts/train_embedder_e2e.py at
+# these arguments with --platform cpu). The port from that init has
+# matched it to the fourth decimal on the CPU and on the card. The
+# reranker's run is not held so: from the same init the JAX script and
+# the port reach direct 0.6738 and 0.7949 on one CPU, its training being
+# chaotic (runs/jax_f32_cpu/reranker_eval.json, PERF.md section 6).
+E2E_SAME_INIT = {
+    ("results", "trained", "dense_only", "recall_at_10"): 0.9609,
+    ("results", "trained", "dense_only", "recall_at_1"): 0.8574,
+    ("results", "trained", "dense_only", "mrr_at_10"): 0.8971,
+    ("results", "trained", "hybrid", "recall_at_10"): 0.9551,
+    ("results", "random_init", "dense_only", "recall_at_10"): 0.0059,
+}
+# Four queries of 512: a metric of one query in [0, 1] each (a recall, or
+# MRR's reciprocal rank) moves by at most this when four queries change.
+E2E_SAME_INIT_SLACK = 4 / 512
+# full_pipeline_random_rerank's recall@1 lies at least this far under the
+# trained arm's (committed: 0.3164 against 0.8105; the JAX script's own
+# float32 run from the same init: 0.2852 against 0.457, so logged, as
+# E2E_FLOORS' missed floors are).
+E2E_RANDOM_RERANK_GAP = 0.2
+# K1-f32's top-10 overlap with the exact scan on the trained geometry
+# (committed for the fused scan: 0.9812).
+E2E_SELECTION_MIN, E2E_SELECTION_COMMITTED = 0.97, 0.9812
+
+
+class CountArms:
+    """Wraps a script's ``evaluate_engine``: every launch count set to 0
+    before each call and read after it, kept with the call's keywords."""
+
+    def __init__(self, evaluate):
+        self.evaluate = evaluate
+        self.arms: list[tuple[dict, dict, float]] = []
+
+    def __call__(self, engine, labeled, **kw):
+        with CountLaunches() as launched:
+            t = time.perf_counter()
+            metrics = self.evaluate(engine, labeled, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        self.arms.append((kw, launched.counts, seconds))
+        return metrics
+
+    def check(self, script: str, card: str) -> int:
+        """K1-f32 once per batch of 64 in every arm with a dense stage and
+        no other kernel; no kernel at all in a BM25-only arm. Returns the
+        K1-f32 launches over all arms."""
+        batches = -(-E2E_N_EVAL // E2E_EVAL_BATCH)
+        total = 0
+        for kw, counts, seconds in self.arms:
+            path = f"{script} eval {kw}"
+            if kw.get("dense_k", 1000) > 0:
+                expect_launches(path, counts, "bin_topk", batches)
+                if counts["bin_topk"] != batches:
+                    raise AssertionError(f"{path}: K1-f32 launched {counts['bin_topk']} times, not {batches}")
+            elif any(counts.values()):
+                raise AssertionError(f"{path}: kernels launched without a dense stage: {counts}")
+            total += counts["bin_topk"]
+            log(f"  {path}: {seconds:.1f} s, K1-f32 launches {counts['bin_topk']}; {card}")
+        return total
+
+
+# The last steps of each trainer run under torch.profiler: the device's
+# busy time a step, against the step time of the run's untraced steps.
+E2E_TRACE_STEPS = 20
+
+
+class TraceSteps:
+    """Wraps a train step: its last ``n`` calls of ``steps`` run under
+    ``torch.profiler`` (CPU and CUDA activity). ``result`` gives the
+    device's busy ms a step (the union of its kernel, copy and set
+    intervals) and its device ops a step, or None where the trace holds no
+    device event."""
+
+    def __init__(self, step_fn, steps: int, n: int = E2E_TRACE_STEPS):
+        self.step_fn, self.first, self.n = step_fn, steps - n + 1, n
+        self.calls, self.profile, self.error = 0, None, None
+
+    def __call__(self, *args):
+        self.calls += 1
+        if self.calls == self.first:
+            torch.cuda.synchronize()
+            try:
+                profile = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+                ])
+                profile.__enter__()
+                self.profile = profile
+            except Exception as exc:  # the trace is a measurement, not a check
+                self.error = repr(exc)
+        out = self.step_fn(*args)
+        if self.calls == self.first + self.n - 1 and self.profile is not None:
+            torch.cuda.synchronize()
+            self.profile.__exit__(None, None, None)
+        return out
+
+    def result(self) -> dict | None:
+        if self.profile is None:
+            return None
+        spans = sorted(
+            (e.time_range.start, e.time_range.end) for e in self.profile.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+        )
+        if not spans:
+            return None
+        busy, end = 0.0, float("-inf")
+        for lo, hi in spans:
+            busy += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        return {"steps": self.n, "device_busy_ms": busy / 1e3 / self.n,
+                "device_ops": len(spans) / self.n}
+
+
+class CountTraining:
+    """Wraps ``train.e2e.train_steps``: the launch counts over the steps,
+    and a trace of the last steps (``TraceSteps``)."""
+
+    def __init__(self, train_steps):
+        self.train_steps = train_steps
+        self.counts: list[dict] = []
+        self.traces: list[dict] = []
+
+    def __call__(self, step_fn, *args, steps: int, **kw):
+        trace = TraceSteps(step_fn, steps)
+        with CountLaunches() as launched:
+            out = self.train_steps(trace, *args, steps=steps, **kw)
+            torch.cuda.synchronize()
+        self.counts.append(launched.counts)
+        self.traces.append(trace.result() or {"error": trace.error})
+        return out
+
+
+class CheckSelection:
+    """Wraps the embedder script's ``selection_check``: after it, K1-f32
+    against its plain twin on the same queries and trained corpus matrix,
+    padded as ``dense_topk``'s bin_topk method pads it (top-10 ids equal
+    where the scores are untied, ``_check_bin_topk_case``)."""
+
+    def __init__(self, selection_check):
+        self.selection_check = selection_check
+        self.max_abs_err = None
+
+    def __call__(self, q_vecs, corpus_mat):
+        from lean_explore_tpu_torch.ops.dense import TILE_ROWS, pad_rows, serving_bins
+
+        out = self.selection_check(q_vecs, corpus_mat)
+        corpus, n_valid = pad_rows(corpus_mat, TILE_ROWS)
+        bins = serving_bins(q_vecs.shape[0], corpus.shape[0])
+        self.max_abs_err = _check_bin_topk_case(
+            "selection on the trained geometry", q_vecs.contiguous(), corpus, n_valid, 10, bins
+        )
+        return out
+
+
+def _at(report: dict, path: tuple):
+    for key in path:
+        report = report[key]
+    return report
+
+
+def run_training_chain(device, kernels, card, repo: Path, seed: int) -> None:
+    """Phase 7: the port's two training scripts at the committed runs'
+    task and widths, the embedder first and the reranker on the embedder
+    it trained, in one temporary directory; then the task data (at seed
+    0), the quality gates, the launches of every eval arm and of the
+    training steps, and the selection check, each logged beside the card."""
+    import lean_explore_tpu_torch.train.e2e as e2e
+
+    log(card)
+    started = time.perf_counter()
+    embedder_script = load_script(repo, "train_torch_embedder_e2e")
+    reranker_script = load_script(repo, "train_torch_reranker_e2e")
+    training = CountTraining(e2e.train_steps)
+    arms = {"embedder": CountArms(embedder_script.evaluate_engine),
+            "reranker": CountArms(reranker_script.evaluate_engine)}
+    selection = CheckSelection(embedder_script.selection_check)
+    embedder_script.evaluate_engine = arms["embedder"]
+    reranker_script.evaluate_engine = arms["reranker"]
+    embedder_script.selection_check = selection
+    e2e.train_steps = training
+    reports, timings = {}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as tmp:
+            out = {name: Path(tmp) / name for name in ("embedder", "reranker")}
+            with Phase("7a. scripts/train_torch_embedder_e2e.py"):
+                reports["embedder"] = embedder_script.main(
+                    ["--out", str(out["embedder"]), "--seed", str(seed), *E2E_EMBEDDER_ARGS]
+                )
+            with Phase("7b. scripts/train_torch_reranker_e2e.py on that embedder"):
+                reports["reranker"] = reranker_script.main(
+                    ["--out", str(out["reranker"]), "--seed", str(seed),
+                     "--embedder", str(out["embedder"] / "checkpoint"), *E2E_RERANKER_ARGS]
+                )
+            for name in out:
+                timings[name] = json.loads((out[name] / "timing.json").read_text())
+    finally:
+        e2e.train_steps = training.train_steps
+
+    for (name, timing), trace in zip(timings.items(), training.traces):
+        train = timing["train"]
+        if "error" in trace:
+            error = f" ({trace['error']})" if trace["error"] else ""
+            log(f"  {name} trace: no device event{error}; the device's busy share is not measured")
+        else:
+            trace["busy_share"] = trace["device_busy_ms"] / train["step_ms"]
+            train["trace"] = trace
+            log(
+                f"  {name} trace of the last {trace['steps']} steps: the device busy "
+                f"{trace['device_busy_ms']:.3f} ms a step, {trace['busy_share']:.1%} of the "
+                f"run's {train['step_ms']:.3f} ms step; {trace['device_ops']:.0f} device ops "
+                f"a step; {card}"
+            )
+        log(
+            f"  {name} training: {train['pairs_per_s']:.1f} pairs/s over the "
+            f"{train['timed_steps']} steps after the first {e2e.WARM_STEPS} "
+            f"({train['step_ms']:.3f} ms a step); loader alone {train['loader_ms']:.3f} ms "
+            f"a batch, {train['loader_share']:.1%} of a step; peak memory "
+            f"{train['peak_memory_gib']} GiB; {train['seconds']:.1f} s for "
+            f"{train['steps']} steps; embedding {timing['embed_docs_per_s']} docs/s; "
+            f"script {timing['total_seconds']:.1f} s; {card}"
+        )
+        log("  " + json.dumps({f"training_chain_{name}": {"report": reports[name], "timing": timing}}))
+
+    problems = []
+    for counts in training.counts:
+        if any(counts.values()):
+            problems.append(f"kernels launched during training: {counts}")
+    launches = sum(arms[name].check(name, card) for name in arms)
+    if seed == 0:
+        for (name, key), want in E2E_TASK.items():
+            task = reports[name]["task"]
+            got = task["model"][key] if key == "vocab_size" else task[key]
+            log(f"  task {name} {key}: {got} (committed {want})")
+            if got != want:
+                problems.append(f"{name} {key} {got} != committed {want}")
+    for name, path, bound, committed in E2E_CEILINGS:
+        got = _at(reports[name], path)
+        ok = got <= bound + 1e-9
+        log(f"  {name} {'/'.join(path)}: {got:.4f} (max {bound:.4f}; committed "
+            f"{committed:.4f}){'' if ok else ' MISS'}")
+        if not ok:
+            problems.append(f"{name} {'/'.join(path)} {got} over {bound}")
+    for name, path, bound, committed, reference in E2E_FLOORS:
+        got = _at(reports[name], path)
+        ok = got >= bound - 1e-9
+        held = seed == 0 and reference >= bound
+        log(
+            f"  {name} {'/'.join(path)}: {got:.4f} (min {bound:.4f}; committed "
+            f"{committed:.4f}, {got - committed:+.4f}; JAX float32 from the same init "
+            f"{reference:.4f}){'' if ok else ' MISS'}{'' if held else ' (logged: C7)'}"
+        )
+        if held and not ok:
+            problems.append(f"{name} {'/'.join(path)} {got} under {bound}")
+    if seed == 0:
+        for path, want in E2E_SAME_INIT.items():
+            got = _at(reports["embedder"], path)
+            ok = abs(got - want) <= E2E_SAME_INIT_SLACK + 1e-9
+            log(
+                f"  embedder {'/'.join(path)}: {got:.4f} (JAX float32 from the same init "
+                f"{want:.4f}, {got - want:+.4f}, within {E2E_SAME_INIT_SLACK:.4f})"
+                f"{'' if ok else ' MISS'}"
+            )
+            if not ok:
+                problems.append(f"embedder {'/'.join(path)} {got} not within "
+                                f"{E2E_SAME_INIT_SLACK} of JAX's {want}")
+    pipeline = reports["reranker"]["pipeline"]
+    gap = pipeline["full_pipeline_trained"]["recall_at_1"] - pipeline["full_pipeline_random_rerank"]["recall_at_1"]
+    log(f"  reranker: full_pipeline_random_rerank recall@1 {gap:.4f} under the trained arm's "
+        f"(min {E2E_RANDOM_RERANK_GAP}; logged: C7)")
+    fused = reports["embedder"]["fused_selection_on_trained_geometry"]["recall_at_10_vs_exact"]
+    k1 = reports["embedder"]["bin_topk_selection_on_trained_geometry"]["recall_at_10_vs_exact"]
+    log(
+        f"  selection recall@10 against the exact scan on the trained geometry: K1-f32 "
+        f"{k1:.4f} (min {E2E_SELECTION_MIN}), fused {fused:.4f}, committed fused "
+        f"{E2E_SELECTION_COMMITTED}; K1-f32 against its plain twin max_abs_err "
+        f"{selection.max_abs_err:.3g}; {card}"
+    )
+    if k1 < E2E_SELECTION_MIN:
+        problems.append(f"K1-f32 selection recall@10 {k1} < {E2E_SELECTION_MIN}")
+    by_name = {k["name"]: k for k in kernels}
+    by_name["bin_topk_f32"]["training_chain_eval_launches"] = launches
+    log(f"  phase 7 (seed {seed}): {time.perf_counter() - started:.1f} s; {card}")
+    if problems:
+        raise AssertionError(f"training chain: {problems}")
+    for forbidden in ("jax", "lean_explore_tpu", "optax"):
+        if forbidden in sys.modules:
+            raise AssertionError(f"{forbidden} was imported on the training chain")
 
 
 if __name__ == "__main__":

@@ -45,6 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from lean_explore_tpu_torch.models import threefry
 from lean_explore_tpu_torch.ops import flash_attention as flash_ops
 from lean_explore_tpu_torch.util.platform import resolve_device
 
@@ -118,17 +119,44 @@ def init_params(
     ``device`` the generator's device is taken; a CUDA device raises when
     CUDA is missing."""
     device = resolve_device(generator.device if device is None else device)
+
+    def draw(shape):
+        # Drawn in f32, then rounded: bf16 normal draws are not supported
+        # on every device.
+        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+    return _random_params(config, draw, dtype, device)
+
+
+def init_params_threefry(
+    config: Qwen3Config,
+    seed: int,
+    *,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+) -> dict:
+    """The JAX package's init, ``init_params(config, PRNGKey(seed))``,
+    drawn on the host by ``threefry`` (its keys and bits exactly, its
+    normals to a few units in the last place) and moved to ``device``,
+    CUDA unless the caller asks for the CPU."""
+    device = resolve_device(device)
+    keys = iter(threefry.split(threefry.key(seed), 16))
+
+    def draw(shape):
+        return torch.from_numpy(threefry.normal(next(keys), shape)).to(device)
+
+    return _random_params(config, draw, dtype, device)
+
+
+def _random_params(config: Qwen3Config, draw, dtype: torch.dtype, device) -> dict:
+    """The params' layout, each projection ``0.02 * draw(shape)`` in the
+    JAX package's order of draws and each norm weight one."""
     h, dh = config.hidden_size, config.head_dim
     nq, nkv = config.num_attention_heads, config.num_key_value_heads
     inter, layers = config.intermediate_size, config.num_hidden_layers
 
     def w(*shape):
-        # Drawn in f32, then rounded: bf16 normal draws are not supported
-        # on every device.
-        draw = torch.randn(
-            shape, generator=generator, device=device, dtype=torch.float32
-        )
-        return (draw * 0.02).to(dtype)
+        return (draw(shape) * 0.02).to(dtype)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)

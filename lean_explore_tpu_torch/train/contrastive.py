@@ -9,9 +9,14 @@ in the batch is a negative, except documents with the same text as i's
 Parameters are the trunk's dict of tensors (``models.qwen3``), each leaf a
 leaf tensor with ``requires_grad``. The PyTorch idiom replaces JAX's pure
 update: the optimizer state is a ``torch.optim.AdamW`` bound to those
-tensors, and a train step updates both in place and returns them.
+tensors, and a train step updates both in place and returns them. A
+learning-rate schedule (``warmup_cosine_decay_schedule``, or any
+``count -> lr``) is read at the optimizer's own step count before each
+update, as optax reads it at its state's count.
 """
 
+import math
+from collections.abc import Callable
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -70,6 +75,43 @@ def infonce_loss(
     return loss, {"loss": loss.detach(), "accuracy": accuracy}
 
 
+Schedule = Callable[[int], float]
+
+
+def warmup_cosine_decay_schedule(
+    init_value: float,
+    peak_value: float,
+    warmup_steps: int,
+    decay_steps: int,
+    end_value: float = 0.0,
+) -> Schedule:
+    """``count -> lr`` with ``optax.warmup_cosine_decay_schedule``'s values
+    (exponent 1): linear from ``init_value`` to ``peak_value`` over
+    ``warmup_steps`` counts, then a cosine from ``peak_value`` to
+    ``end_value`` over ``decay_steps - warmup_steps``, then ``end_value``,
+    each step rounded to float32 as optax rounds it (its f32 warmup is
+    7.6e-6 off the exact rate at count 1 of 200)."""
+    cosine_steps = decay_steps - warmup_steps
+    if not cosine_steps > 0:
+        raise ValueError(
+            f"the cosine decay needs decay_steps > warmup_steps, got "
+            f"{decay_steps=} and {warmup_steps=}"
+        )
+    f32 = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(count: int) -> float:
+        count = max(int(count), 0)
+        if count < warmup_steps:
+            frac = f32(1.0) - f32(count) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac + f32(peak_value))
+        t = f32(min(count - warmup_steps, cosine_steps))
+        cosine = f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * t / f32(cosine_steps)))
+        return float(f32(peak_value) * (f32(1.0 - alpha) * cosine + f32(alpha)))
+
+    return schedule
+
+
 @dataclass(frozen=True)
 class AdamW:
     """``make_optimizer``'s result: builds a ``torch.optim.AdamW`` over a
@@ -77,28 +119,63 @@ class AdamW:
     mu = b1 mu + (1 - b1) g and nu = b2 nu + (1 - b2) g^2, bias-corrected
     by 1 - b^count, and p -= lr (mu_hat / (sqrt(nu_hat) + eps) + wd p) with
     the decay on every leaf and on the pre-update p (torch scales p by
-    1 - lr wd first, the same value)."""
+    1 - lr wd first, the same value). A scheduled rate is kept on the
+    optimizer as ``lr_schedule`` (not in its ``state_dict``) for
+    ``apply_schedule``."""
 
-    learning_rate: float = 1e-5
+    learning_rate: float | Schedule = 1e-5
     weight_decay: float = 0.01
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
 
     def __call__(self, params: dict) -> torch.optim.AdamW:
-        return torch.optim.AdamW(
+        schedule = self.learning_rate if callable(self.learning_rate) else None
+        opt_state = torch.optim.AdamW(
             param_leaves(params),
-            lr=self.learning_rate,
+            lr=schedule(0) if schedule else self.learning_rate,
             betas=(self.b1, self.b2),
             eps=self.eps,
             weight_decay=self.weight_decay,
         )
+        opt_state.lr_schedule = schedule
+        return opt_state
 
 
-def make_optimizer(learning_rate: float = 1e-5, weight_decay: float = 0.01) -> AdamW:
+def make_optimizer(
+    learning_rate: float | Schedule = 1e-5, weight_decay: float = 0.01
+) -> AdamW:
     """AdamW with optax's defaults (betas 0.9/0.999, eps 1e-8, decay on
-    every leaf), as the JAX package's ``optax.adamw(lr, weight_decay=wd)``."""
+    every leaf), as the JAX package's ``optax.adamw(lr, weight_decay=wd)``;
+    ``learning_rate`` is a float or a schedule ``count -> lr``."""
     return AdamW(learning_rate, weight_decay)
+
+
+def update_count(opt_state: torch.optim.Optimizer) -> int:
+    """The number of updates the optimizer has taken: Adam's ``step`` of
+    its first parameter (0 before the first update). A state carried from
+    optax (``opt_state_from_optax``) or restored from a checkpoint carries
+    it."""
+    for group in opt_state.param_groups:
+        for leaf in group["params"]:
+            state = opt_state.state.get(leaf)
+            if state and "step" in state:
+                return int(state["step"])
+    return 0
+
+
+def apply_schedule(opt_state: torch.optim.Optimizer) -> None:
+    """Set each param group's ``lr`` to the schedule at ``update_count``,
+    as optax's ``scale_by_schedule`` reads its count before incrementing
+    it: the first update runs at ``schedule(0)``. The decoupled decay is
+    scaled by that rate on both sides (torch's ``p *= 1 - lr wd``). No-op
+    for a float rate."""
+    schedule = getattr(opt_state, "lr_schedule", None)
+    if schedule is None:
+        return
+    lr = float(schedule(update_count(opt_state)))
+    for group in opt_state.param_groups:
+        group["lr"] = lr
 
 
 def make_train_step(config: Qwen3Config, temperature: float = 0.05):
@@ -106,13 +183,15 @@ def make_train_step(config: Qwen3Config, temperature: float = 0.05):
 
     ``opt_state`` is the ``torch.optim.AdamW`` that ``make_optimizer``'s
     result built over ``params`` and holds the hyperparameters (the JAX
-    step takes the optax transformation for them instead). The step takes
-    the loss's gradient by autograd and lets the optimizer update the params
-    and its moments in place, so it returns the objects it was given;
-    metrics are detached scalars.
+    step takes the optax transformation for them instead). The step sets
+    the scheduled rate (``apply_schedule``), takes the loss's gradient by
+    autograd and lets the optimizer update the params and its moments in
+    place, so it returns the objects it was given; metrics are detached
+    scalars.
     """
 
     def step(params, opt_state, batch: ContrastiveBatch):
+        apply_schedule(opt_state)
         opt_state.zero_grad(set_to_none=True)
         loss, metrics = infonce_loss(params, config, batch, temperature)
         loss.backward()
@@ -136,13 +215,22 @@ def init_train_state(
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = None,
+    draw: str = "torch",
 ):
-    """Random-init params (``qwen3.init_params`` from a ``torch.Generator``
-    seeded with ``seed`` on ``device``, CUDA unless the caller asks for the
-    CPU) and the matching optimizer state."""
+    """Random-init params on ``device`` (CUDA unless the caller asks for
+    the CPU) and the matching optimizer state. ``draw`` "torch" draws
+    ``qwen3.init_params`` from a ``torch.Generator`` seeded with ``seed``
+    on ``device``; "threefry" draws the JAX package's init at ``seed``
+    (``qwen3.init_params_threefry``)."""
     device = resolve_device(device)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    params = trainable(qwen3.init_params(config, generator, dtype=dtype, device=device))
+    if draw == "torch":
+        generator = torch.Generator(device=device).manual_seed(seed)
+        params = qwen3.init_params(config, generator, dtype=dtype, device=device)
+    elif draw == "threefry":
+        params = qwen3.init_params_threefry(config, seed, dtype=dtype, device=device)
+    else:
+        raise ValueError(f"unknown draw {draw!r}: 'torch' or 'threefry'")
+    params = trainable(params)
     return params, optimizer(params)
 
 

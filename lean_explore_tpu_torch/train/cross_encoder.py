@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from lean_explore_tpu_torch.models import qwen3
 from lean_explore_tpu_torch.models.qwen3 import Qwen3Config
+from lean_explore_tpu_torch.train.contrastive import apply_schedule
 from lean_explore_tpu_torch.train.data import encode_fixed
 
 # The serving client's definition: training sees byte-identical pairs.
@@ -57,9 +58,11 @@ def cross_encoder_loss(
 
 def make_ce_train_step(config: Qwen3Config, *, token_true: int, token_false: int):
     """Train step (params, opt_state, batch) -> (params, opt_state, metrics)
-    with the updates in place, as ``contrastive.make_train_step``."""
+    with the scheduled rate and the updates in place, as
+    ``contrastive.make_train_step``."""
 
     def step(params, opt_state, batch: CrossEncoderBatch):
+        apply_schedule(opt_state)
         opt_state.zero_grad(set_to_none=True)
         loss, metrics = cross_encoder_loss(
             params, config, batch, token_true=token_true, token_false=token_false

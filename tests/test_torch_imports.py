@@ -18,7 +18,9 @@ the extract CLI's ``--embed --index --use-latest`` on the exported
 checkpoint, ``evaluate_engine``), a search under the rerank cascade, the
 fused int8 reranker's ``rerank_sync`` and ``scripts/eval_torch_quality.py``
 (its full and cascade arms) at a tiny size, and then reports which of the
-forbidden modules are in ``sys.modules``.
+forbidden modules are in ``sys.modules``. Another runs five steps of each
+end-to-end training script (scripts/train_torch_*_e2e.py) and reports the
+same.
 """
 
 import json
@@ -215,3 +217,36 @@ def test_serving_path_imports_no_forbidden_module():
     assert proc.returncode == 0, proc.stderr[-3000:]
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert loaded == [], f"the port's serving or training path imported {loaded}"
+
+
+TRAINING_SCRIPTS = r"""
+import json, sys, tempfile
+from pathlib import Path
+
+from chip_smoke import load_script
+
+def load(name):
+    return load_script(Path("."), name)
+
+tmp = tempfile.mkdtemp()
+mini = ["--n-decls", "200", "--n-concepts", "48", "--n-eval", "32", "--batch-size", "32",
+        "--hidden-size", "32", "--num-layers", "1", "--steps", "5", "--device", "cpu"]
+load("train_torch_embedder_e2e").main(["--out", f"{tmp}/embedder", "--paraphrases", *mini])
+load("train_torch_reranker_e2e").main(
+    ["--out", f"{tmp}/reranker", "--embedder", f"{tmp}/embedder/checkpoint", "--rerank-top", "5",
+     *mini])
+print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
+"""
+
+
+def test_training_scripts_import_no_forbidden_module():
+    """Five steps of each end-to-end training script (the reranker's on
+    the embedder the first trained), then the forbidden modules loaded."""
+    code = f"FORBIDDEN = {FORBIDDEN!r}\n" + TRAINING_SCRIPTS
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert loaded == [], f"the port's training scripts imported {loaded}"

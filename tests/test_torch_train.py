@@ -31,6 +31,10 @@ Tolerances, all float32:
   2^-24 / (1 - b1)), where torch takes them in double: each step's update
   within lr U_t (2^-25 / (1 - b2) + 2^-24 / (1 - b1)), plus one rounding of
   p, 2^-23 |p|, a step.
+- A scheduled rate (warmup then cosine): the same bounds with each step's
+  lr_t = schedule(t - 1) in place of lr, 2 sum_t lr_t U_t; the rate each
+  step used equals optax's at the same count within 1e-6 relative (both
+  round the schedule to float32; their cosines may differ in the last bit).
 """
 
 import json
@@ -186,6 +190,31 @@ def _adam_update_bound(steps: int, b1=0.9, b2=0.999) -> float:
     return total
 
 
+def _scheduled_update_bound(lrs: list[float]) -> float:
+    """sum over t of lr_t U_t (module docstring): the largest total move
+    of one entry over len(lrs) steps at those rates."""
+    return sum(
+        lr * (_adam_update_bound(t) - _adam_update_bound(t - 1))
+        for t, lr in enumerate(lrs, start=1)
+    )
+
+
+LR = 1e-3
+SCHEDULE = dict(init_value=0.0, peak_value=LR, warmup_steps=2, decay_steps=4, end_value=0.05 * LR)
+
+
+def _learning_rates(learning_rate: str):
+    """(JAX's, the port's) learning rate: ``LR``, or optax's warmup-cosine
+    schedule at SCHEDULE and the port's counterpart."""
+    if learning_rate == "float":
+        return LR, LR
+    return optax.warmup_cosine_decay_schedule(**SCHEDULE), TC.warmup_cosine_decay_schedule(**SCHEDULE)
+
+
+def _rate_at(learning_rate, count: int) -> float:
+    return float(learning_rate(count)) if callable(learning_rate) else learning_rate
+
+
 def test_adamw_matches_optax_on_the_same_gradients():
     rng = np.random.default_rng(5)
     shapes = {"embed": (7, 3), "final_norm": (3,)}
@@ -241,15 +270,15 @@ def _jax_steps(step, config, params, optimizer, batches):
 
 def _objective(kind):
     """(JAX step factory, port step factory, JAX batches, port batches) of
-    three seeded batches for the contrastive or the cross-encoder step."""
+    four seeded batches for the contrastive or the cross-encoder step."""
     kw = dict(token_true=TOKEN_TRUE, token_false=TOKEN_FALSE)
     if kind == "contrastive":
-        arrays = [_contrastive_arrays(seed=s) for s in range(3)]
+        arrays = [_contrastive_arrays(seed=s) for s in range(4)]
         return (
             JC.make_train_step, TC.make_train_step,
             [_jax_batch(a) for a in arrays], [_torch_batch(a) for a in arrays],
         )
-    arrays = [_ce_arrays(seed=s) for s in range(3)]
+    arrays = [_ce_arrays(seed=s) for s in range(4)]
     return (
         lambda config, mesh, optimizer: JX.make_ce_train_step(config, mesh, optimizer, **kw),
         lambda config: TX.make_ce_train_step(config, **kw),
@@ -258,31 +287,37 @@ def _objective(kind):
     )
 
 
-@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize(
+    "steps,learning_rate", [(1, "float"), (3, "float"), (4, "schedule")],
+    ids=["1", "3", "4-schedule"],
+)
 @pytest.mark.parametrize("kind", ["contrastive", "cross_encoder"])
-def test_train_steps_match_jax(tiny, kind, steps):
+def test_train_steps_match_jax(tiny, kind, steps, learning_rate):
     """``make_train_step`` and ``make_ce_train_step`` against JAX's on a
     one-device CPU mesh, from the same params, at lr 1e-3 so that the
-    updates dwarf f32 rounding."""
+    updates dwarf f32 rounding, or on optax's warmup-cosine schedule to
+    that peak (warmup 2 of 4 steps, the first update at rate 0) and the
+    port's: each step at the rate optax reads at the same count."""
     config, jparams, tconfig = tiny
-    lr = 1e-3
+    jax_lr, torch_lr = _learning_rates(learning_rate)
     jax_step, torch_step, jax_batches, torch_batches = _objective(kind)
     want_losses, want_params, jstate = _jax_steps(
-        jax_step, config, jparams, JC.make_optimizer(learning_rate=lr), jax_batches[:steps]
+        jax_step, config, jparams, JC.make_optimizer(learning_rate=jax_lr), jax_batches[:steps]
     )
     params = _torch_params(jparams)
-    opt_state = TC.make_optimizer(learning_rate=lr)(params)
+    opt_state = TC.make_optimizer(learning_rate=torch_lr)(params)
     step = torch_step(tconfig)
     for t, batch in enumerate(torch_batches[:steps]):
         before = [p.detach().clone() for p in TC.param_leaves(params)]
         diff = [b.numpy() - w for b, w in zip(before, TC.param_leaves(want_params[t]))]
         params, opt_state, metrics = step(params, opt_state, batch)
+        assert math.isclose(opt_state.param_groups[0]["lr"], _rate_at(jax_lr, t), rel_tol=1e-6)
         first_order = sum(
             float(np.abs(p.grad.numpy() * d).sum()) for p, d in zip(TC.param_leaves(params), diff)
         )
         tol = 2 * first_order + LOSS_RTOL * abs(want_losses[t])
         assert abs(float(metrics["loss"]) - want_losses[t]) <= tol
-    bound = 2 * lr * _adam_update_bound(steps)
+    bound = 2 * _scheduled_update_bound([_rate_at(jax_lr, t) for t in range(steps)])
     for got, want in zip(TC.param_leaves(params), TC.param_leaves(want_params[-1])):
         got = got.detach().numpy()
         assert np.all(np.abs(got - want) <= bound + 2.0**-23 * np.abs(want))
@@ -291,14 +326,17 @@ def test_train_steps_match_jax(tiny, kind, steps):
         _assert_grads([opt_state.state[p]["exp_avg"] for p in TC.param_leaves(params)], mu)
 
 
-def test_state_carried_from_optax_continues_like_jax(tiny):
+@pytest.mark.parametrize("learning_rate", ["float", "schedule"])
+def test_state_carried_from_optax_continues_like_jax(tiny, learning_rate):
     """One JAX step, then its params and optax state (mu, nu, count)
     carried across (``opt_state_from_optax``) and one more step on each
-    side: the same loss (same params) and params within 2 lr U_2."""
+    side: the same loss (same params) and params within 2 lr U_2. With the
+    schedule the carried step runs at the rate of the carried count 1
+    (half the peak), not at the rate 0 of a fresh count."""
     config, jparams, tconfig = tiny
-    lr = 1e-3
+    jax_lr, torch_lr = _learning_rates(learning_rate)
     a1, a2 = _contrastive_arrays(seed=0), _contrastive_arrays(seed=1)
-    joptimizer = JC.make_optimizer(learning_rate=lr)
+    joptimizer = JC.make_optimizer(learning_rate=jax_lr)
     mesh = make_mesh((1, 1), axis_names=TRAIN_AXES, devices=jax.devices()[:1])
     params = JC.shard_params(jparams, mesh, config)
     jstate = JC.commit_to_mesh(jax.jit(joptimizer.init)(params), mesh)
@@ -308,13 +346,15 @@ def test_state_carried_from_optax_continues_like_jax(tiny):
     adam = jstate[0]
     tparams = _torch_params(mid)
     opt_state = TC.opt_state_from_optax(
-        TC.make_optimizer(learning_rate=lr), tparams, _np_tree(adam.mu), _np_tree(adam.nu),
+        TC.make_optimizer(learning_rate=torch_lr), tparams, _np_tree(adam.mu), _np_tree(adam.nu),
         int(adam.count),
     )
     params, jstate, jmetrics = jstep(params, jstate, _jax_batch(a2))
     step = TC.make_train_step(tconfig)
     tparams, opt_state, metrics = step(tparams, opt_state, _torch_batch(a2))
     assert math.isclose(float(metrics["loss"]), float(jmetrics["loss"]), rel_tol=LOSS_RTOL)
+    lr = _rate_at(jax_lr, int(adam.count))
+    assert lr > 0 and math.isclose(opt_state.param_groups[0]["lr"], lr, rel_tol=1e-6)
     u2 = _adam_update_bound(2) - _adam_update_bound(1)
     for got, want in zip(TC.param_leaves(tparams), TC.param_leaves(_np_tree(params))):
         diff = np.abs(got.detach().numpy() - want)
