@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --kernels  # phases 1-3b only (build + kernel checks)
     python3 chip_smoke.py --training-chain [--seed N]  # phases 1, 2 and 7
+    python3 chip_smoke.py --extraction  # phases 1, 2 and 8
 
 Phases, each announced before it starts and timed after it ends:
 
@@ -81,11 +82,38 @@ Phases, each announced before it starts and timed after it ends:
    cross-encoder steps in bf16 at max_length 256 (their pairs/s and each
    step's seconds on a line of its own). Every step launches K5's
    forward, dq and dk/dv once per layer each, and no other kernel.
-6. build the index of the committed 200k chain through the port and
-   evaluate it: ``make_corpus`` at the chain's arguments, a
-   ``DeclarationStore`` in a temporary directory, ``generate_embeddings``
-   with a float32 ``EmbeddingClient`` on runs/scale200k/embedder/checkpoint,
-   ``build_indices``, ``load_index_artifacts`` with a float32 corpus on the
+8. (after phase 7 and before phase 6, which uses its embeddings; its
+   host stages, parse, informalize and the BPE timing, run in a child
+   process started before phase 7, beside the training, since they load
+   one core of the host and nothing of the card) build the
+   index of the committed 200k chain with the port's extraction pipeline
+   from doc-gen4's output: ``make_corpus`` at the chain's arguments
+   written as a doc-gen4 workspace (one Lean source file per module and
+   an api-docs.db with a RenderedCode type for each declaration), the
+   data and cache roots set to a
+   fresh temporary directory, then ``extract.__main__.run_pipeline`` with
+   parse, informalize (an in-process client answering each prompt with
+   its declaration's synthetic informalization), embed (a float32
+   ``EmbeddingClient`` on runs/scale200k/embedder/checkpoint, on the card)
+   and index, each stage timed with its rows/s; before it, 1,000 other
+   declarations parsed and informalized through ``OpenRouterClient``
+   against a stub server on localhost. The store must equal
+   ``make_corpus``'s (names, modules, source texts, informalizations),
+   every declaration must be informalized and embedded once (the
+   manifest's n_embedded 200,000), ``evaluate_engine`` over the artifacts
+   (float32 corpus, K1-f32 once a batch of 64) must lie within 2 queries
+   of the committed JAX numbers, and one ``Service.search_batch`` of 128
+   queries at the serving defaults (bf16 corpus, K1 once) must give the
+   ids of an in-process engine built the same default way; the
+   byte-level BPE reader (tests/fixtures/bpe_qwen_style) encodes and
+   decodes every informalization back, beside the WordLevel reader.
+6. index the 200k chain as the committed runs did and evaluate it: a
+   ``DeclarationStore`` of ``make_corpus``'s declarations in the corpus's
+   order (the fusion breaks ties by id, so the pipeline's module-ordered
+   ids move the cascade arms by up to 5 queries), each with the embedding
+   phase 8 computed on the card for it, ``build_indices``; the first
+   20,000 documents' ``embed_sync`` rows within 1e-5 of the pipeline's,
+   ``load_index_artifacts`` with a float32 corpus on the
    card, a ``SearchEngine`` with the float32 reranker on
    runs/scale200k/reranker/checkpoint and ``evaluate_engine`` over the 512
    eval queries at rerank_top 50 (K1-f32 once a batch of 64); recall@1,
@@ -121,12 +149,14 @@ Phases, each announced before it starts and timed after it ends:
    the task data must equal the records (train split, padded
    vocabularies, the reranker's examples), the trained embedder must land
    within 4 queries of 512 of the JAX script's own float32 run from the
-   same init (runs/jax_f32_cpu/embedder_eval.json), and each one-sided
-   floor set from the committed JAX numbers (a TPU run) must hold where
-   the JAX scripts' own float32 runs from that init meet it; the floors
-   they miss are logged (ROADMAP C7). At every seed BM25 alone and the
-   random inits must stay near zero; at another seed the floors are
-   logged. A torch.profiler trace of each trainer's last 20 steps gives
+   same init (runs/jax_f32_cpu/embedder_eval.json), and the reranker's
+   direct recall@1-of-50 and full-pipeline recall@1 and @10 must lie no
+   more than 4 queries under the JAX reranker script's own float32 run
+   from that init (runs/jax_f32_cpu/reranker_eval.json; one-sided, its
+   training being chaotic, ROADMAP C7 and C8). The floors set from the
+   committed JAX numbers (a TPU run) are logged beside them at every
+   seed. At every seed BM25 alone and the random inits must stay near
+   zero. A torch.profiler trace of each trainer's last 20 steps gives
    the device's busy share of a step.
    K1-f32 must launch once per batch of 64 in every eval arm with a
    dense stage and no other kernel, and no kernel may launch during the
@@ -137,7 +167,7 @@ Phases, each announced before it starts and timed after it ends:
    loader's share of a step, peak memory, embedding docs/s and each eval
    arm's seconds.
 Every kernel's launch count is set to 0 just before each path of phases
-3b, 4, 4g, 5, 6 and 7 is driven and read just after it.
+3b, 4, 4g, 5, 6, 7 and 8 is driven and read just after it.
 
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure raises, so the run exits non-zero with its
@@ -1325,8 +1355,19 @@ def main() -> int:
         help="phases 1, 2 and 7 only: build the kernels, then train and "
         "evaluate the 20k chain",
     )
+    parser.add_argument(
+        "--extraction", action="store_true",
+        help="phases 1, 2 and 8 only: build the kernels, then run the extraction "
+        "pipeline at the 200k chain",
+    )
     parser.add_argument("--seed", type=int, default=0, help="phase 7's --seed")
+    parser.add_argument("--extraction-host", type=Path, default=None,
+                        help=argparse.SUPPRESS)  # phase 8's child process
+    parser.add_argument("--card", default="", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.extraction_host is not None:
+        # Phase 8's host stages, in the child that phase 8 starts: no card.
+        return run_extraction_host(args.extraction_host, args.card)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -1366,6 +1407,20 @@ def main() -> int:
         log(json.dumps(device_record()))
         return 0
 
+    if args.extraction:
+        kernels = [{"name": "bin_topk"}, {"name": "bin_topk_f32"}]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as root:
+            host = ExtractionHost(Path(root), card)
+            try:
+                with Phase(EXTRACTION_PHASE):
+                    built = run_extraction_chain(device, kernels, card, repo, Path(root), host)
+                built["store"].close()
+            finally:
+                host.stop()
+        log(json.dumps({"kernels": kernels}))
+        log(json.dumps(device_record()))
+        return 0
+
     with Phase("kernels against their plain versions"):
         kernels = [
             check_bin_topk(device),
@@ -1393,10 +1448,19 @@ def main() -> int:
             run_service(device, kernels, card)
         with Phase("5. training at full width"):
             run_training(device, kernels, card)
-        with Phase("6. index build and quality at the 200k chain"):
-            run_quality_chain(device, kernels, card, repo)
-        with Phase("7. training end to end at the 20k chain"):
-            run_training_chain(device, kernels, card, repo, args.seed)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as root:
+            # Phase 8's host stages run in a child beside phase 7's training.
+            host = ExtractionHost(Path(root), card)
+            try:
+                with Phase("7. training end to end at the 20k chain"):
+                    run_training_chain(device, kernels, card, repo, args.seed)
+                with Phase(EXTRACTION_PHASE):
+                    built = run_extraction_chain(device, kernels, card, repo, Path(root), host)
+                with Phase("6. index of the 200k chain in the corpus's order and its quality"):
+                    run_quality_chain(device, kernels, card, repo, built)
+                built["store"].close()
+            finally:
+                host.stop()
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps(device_record()))
@@ -2917,12 +2981,12 @@ def load_script(repo: Path, name: str):
 SPLIT_DOCS = 20_000
 
 
-def embed_split(embedder, corpus, seconds: dict, card: str) -> None:
+def embed_split(embedder, corpus, seconds: dict, card: str) -> np.ndarray:
     """Where the embedding stage's time goes, from its first SPLIT_DOCS
     documents in the stage's batches: the host tokenizer alone
     (``encode_batch``), then ``embed_sync`` (tokenizer, trunk and copy
     back); the rest of the stage, scaled to its documents, is the store's
-    reads and writes."""
+    reads and writes. Returns ``embed_sync``'s rows."""
     from lean_explore_tpu_torch.models.tokenizer import encode_batch
 
     docs = [d.informalization for d in corpus.declarations[:SPLIT_DOCS]]
@@ -2933,8 +2997,8 @@ def embed_split(embedder, corpus, seconds: dict, card: str) -> None:
                      max_length=embedder.max_length, append_eos=True)
     tok_s = time.perf_counter() - t
     t = time.perf_counter()
-    for start in range(0, len(docs), batch):
-        embedder.embed_sync(docs[start : start + batch])
+    vectors = [embedder.embed_sync(docs[start : start + batch])
+               for start in range(0, len(docs), batch)]
     embed_s = time.perf_counter() - t
     scale = len(corpus.declarations) / len(docs)
     store_s = seconds["embed"] - embed_s * scale
@@ -2946,6 +3010,7 @@ def embed_split(embedder, corpus, seconds: dict, card: str) -> None:
     )
     seconds.update(split_tokenizer=tok_s * scale, split_trunk=(embed_s - tok_s) * scale,
                    split_store=store_s)
+    return np.concatenate(vectors)
 
 
 def eval_arm(engine, corpus, batches: int, point: str | None) -> tuple[dict, float, dict]:
@@ -3203,10 +3268,10 @@ def _cli_child(repo, data_dir, env, query, want_names, logs) -> float:
 
 
 def run_entry_points(data_dir: Path, corpus, embedder_dir, reranker_dir, repo, device, card) -> None:
-    """Phase 6b: the API server, the MCP server and the CLI as processes
-    over the chain's artifacts, each answer's ids (the names, for the
-    CLI's text) equal to an in-process ``SearchEngine(data_dir,
-    device="cuda")`` built the same default way."""
+    """Phase 6b: the API server, the MCP server and the CLI as processes,
+    run at the same time, over the chain's artifacts, each answer's ids
+    (the names, for the CLI's text) equal to an in-process
+    ``SearchEngine(data_dir, device="cuda")`` built the same default way."""
     from lean_explore_tpu_torch.config import Config
 
     saved = Config.CORPUS_DTYPE, Config.EMBEDDING_MAX_LENGTH, Config.RERANKER_MAX_LENGTH
@@ -3222,9 +3287,17 @@ def run_entry_points(data_dir: Path, corpus, embedder_dir, reranker_dir, repo, d
     env = _child_env(embedder_dir, reranker_dir)
     logs = data_dir / "entry_point_logs"
     logs.mkdir(exist_ok=True)
-    api_up = _api_server_child(repo, data_dir, env, queries, want, logs)
-    mcp_s = _mcp_server_child(repo, data_dir, env, queries, want, logs)
-    cli_s = _cli_child(repo, data_dir, env, queries[0], cli_want, logs)
+    # The three children at once: each starts its own interpreter and
+    # loads the chain's models, and none depends on another.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = (
+            pool.submit(_api_server_child, repo, data_dir, env, queries, want, logs),
+            pool.submit(_mcp_server_child, repo, data_dir, env, queries, want, logs),
+            pool.submit(_cli_child, repo, data_dir, env, queries[0], cli_want, logs),
+        )
+        api_up, mcp_s, cli_s = (f.result() for f in futures)
     log(
         f"  entry points over the chain's artifacts (float32 corpus, checkpoints "
         f"runs/scale200k, lengths {CHAIN_EMB_MAX_LENGTH}/{CHAIN_RR_MAX_LENGTH}): "
@@ -3236,17 +3309,25 @@ def run_entry_points(data_dir: Path, corpus, embedder_dir, reranker_dir, repo, d
 
 
 
-def run_quality_chain(device, kernels, card, repo: Path) -> None:
-    """Phase 6 through scripts/eval_torch_quality.py's stages: build the
-    chain's index on the card, then evaluate it with every launch count set
-    to 0 before and read after, in five arms: the full pipeline, the
-    cascade at each of CHAIN_CASCADE_POINTS, each held to its row of the
-    committed record, and the int8 reranker (the chain's reranker loaded in
-    bf16 and quantized), gated only on its int8 leaves and launch counts.
-    K1-f32 must launch once per batch of 64 in each arm."""
+def run_quality_chain(device, kernels, card, repo: Path, built: dict) -> None:
+    """Phase 6 on the chain as scripts/eval_torch_quality.py builds it: a
+    store of ``make_corpus``'s declarations in the corpus's order (the
+    order of the committed runs, whose fusion breaks ties by id), each
+    with the embedding that phase 8's pipeline computed on the card for its
+    text (``built``: the corpus, the stage seconds, the stored embeddings
+    by name and the f32 embedder), and its artifacts. Then where the
+    embedding stage's time goes, the first SPLIT_DOCS documents'
+    ``embed_sync`` rows within EXTRACTION_EMBED_TOL of the pipeline's, and
+    the quality eval with every launch count set to 0 before and read
+    after, in five arms: the full pipeline, the cascade at each of
+    CHAIN_CASCADE_POINTS, each held to its row of the committed record, and
+    the int8 reranker (the chain's reranker loaded in bf16 and quantized),
+    gated only on its int8 leaves and launch counts. K1-f32 must launch
+    once per batch of 64 in each arm."""
+    from lean_explore_tpu_torch.evaluation import guard_store_vocab
+    from lean_explore_tpu_torch.extract.index import build_indices
+    from lean_explore_tpu_torch.models.store import DeclarationStore
     from lean_explore_tpu_torch.search.engine import SearchEngine
-    from lean_explore_tpu_torch.train.synthetic import make_corpus
-    from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
     from lean_explore_tpu_torch.util.reranker_client import RerankerClient
 
     log(card)
@@ -3259,54 +3340,67 @@ def run_quality_chain(device, kernels, card, repo: Path) -> None:
         f"{tree_bytes(repo) / 1e6:.1f} MB"
     )
     script = load_script(repo, "eval_torch_quality")
-    t = time.perf_counter()
-    corpus = make_corpus(**CHAIN_CORPUS)
-    log(f"  make_corpus {CHAIN_CORPUS} in {time.perf_counter() - t:.1f} s")
-    embedder = EmbeddingClient(
-        str(embedder_dir), max_length=CHAIN_EMB_MAX_LENGTH,
-        batch_size=script.EMBED_BATCH, dtype=torch.float32, device=device,
-    )
+    corpus, embedder, embeddings = built["corpus"], built["embedder"], built["embeddings"]
+    seconds = {"embed": built["seconds"]["embed"]}
     reranker = RerankerClient(
         str(reranker_dir), max_length=CHAIN_RR_MAX_LENGTH, dtype=torch.float32,
         device=device,
     )
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp:
-        store, seconds = script.build_index(corpus, embedder, Path(tmp))
-        log(
-            f"  store {seconds['store']:.1f} s; embedding stage "
-            f"{seconds['embed_docs_per_s']:.1f} docs/s ({len(corpus.declarations)} "
-            f"docs in {seconds['embed']:.1f} s, f32, max_length "
-            f"{CHAIN_EMB_MAX_LENGTH}); artifact build (build_indices) "
-            f"{seconds['build']:.1f} s; {card}"
-        )
-        embed_split(embedder, corpus, seconds, card)
-        engine, load_s = script.open_engine(Path(tmp), store, embedder, reranker, device)
-        dense = engine._artifacts.dense
-        if dense.embeddings.dtype != torch.float32 or dense.device.type != "cuda":
-            raise AssertionError(f"the eval corpus is {dense.embeddings.dtype} on {dense.device}")
-        log(f"  load_index_artifacts {tuple(dense.embeddings.shape)} float32 on the card in {load_s:.1f} s")
-        batches = -(-len(corpus.eval_queries) // 64)
-        arms = {}
-        for label, point in [("full_pipeline", None)] + [
-            (f"cascade_{p.replace(',', '_')}", p) for p in CHAIN_CASCADE_POINTS
-        ]:
-            arms[label] = eval_arm(engine, corpus, batches, point)
-        int8_reranker = RerankerClient(
-            str(reranker_dir), max_length=CHAIN_RR_MAX_LENGTH, dtype="int8", device=device,
-        )
-        expect_int8_leaves(int8_reranker)
-        int8_engine = SearchEngine(
-            Path(tmp), store=store, artifacts=engine._artifacts, embedding_client=embedder,
-            reranker_client=int8_reranker, device=device,
-        )
-        with CountIntMM() as int_mm:
-            arms["int8_reranker"] = eval_arm(int8_engine, corpus, batches, None)
-        if int_mm.calls == 0:
-            raise AssertionError("the int8 reranker arm never reached torch._int_mm")
-        del int8_engine, int8_reranker
-        with Phase("6b. the entry points as processes over the chain's artifacts"):
-            run_entry_points(Path(tmp), corpus, embedder_dir, reranker_dir, repo, device, card)
-        store.close()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_chain_", dir=built["extraction"].parent))
+    t = time.perf_counter()
+    (work / "store").mkdir()
+    store = DeclarationStore(work / "store" / "declarations.db", create=True)
+    store.insert_many(
+        dataclasses.replace(d, informalization_embedding=embeddings[d.name])
+        for d in corpus.declarations
+    )
+    seconds["store"] = time.perf_counter() - t
+    guard_store_vocab(store, embedder.tokenizer)
+    t = time.perf_counter()
+    build_indices(store, work)
+    seconds["build"] = time.perf_counter() - t
+    log(
+        f"  store of the corpus in its order with phase 8's embeddings {seconds['store']:.1f} s; "
+        f"embedding stage (phase 8's) {len(corpus.declarations) / seconds['embed']:.1f} docs/s "
+        f"({len(corpus.declarations)} docs in {seconds['embed']:.1f} s, f32, max_length "
+        f"{CHAIN_EMB_MAX_LENGTH}); artifact build (build_indices) {seconds['build']:.1f} s; {card}"
+    )
+    vectors = embed_split(embedder, corpus, seconds, card)
+    worst = max(
+        float(np.abs(v - embeddings[d.name]).max())
+        for d, v in zip(corpus.declarations, vectors)
+    )
+    if worst > EXTRACTION_EMBED_TOL:
+        raise AssertionError(f"phase 8's embedding rows differ from embed_sync's by {worst}")
+    log(f"  the first {len(vectors)} documents' embed_sync rows within {worst:.2e} of "
+        f"phase 8's stored rows (tolerance {EXTRACTION_EMBED_TOL})")
+    engine, load_s = script.open_engine(work, store, embedder, reranker, device)
+    dense = engine._artifacts.dense
+    if dense.embeddings.dtype != torch.float32 or dense.device.type != "cuda":
+        raise AssertionError(f"the eval corpus is {dense.embeddings.dtype} on {dense.device}")
+    log(f"  load_index_artifacts {tuple(dense.embeddings.shape)} float32 on the card in {load_s:.1f} s")
+    batches = -(-len(corpus.eval_queries) // 64)
+    arms = {}
+    for label, point in [("full_pipeline", None)] + [
+        (f"cascade_{p.replace(',', '_')}", p) for p in CHAIN_CASCADE_POINTS
+    ]:
+        arms[label] = eval_arm(engine, corpus, batches, point)
+    int8_reranker = RerankerClient(
+        str(reranker_dir), max_length=CHAIN_RR_MAX_LENGTH, dtype="int8", device=device,
+    )
+    expect_int8_leaves(int8_reranker)
+    int8_engine = SearchEngine(
+        work, store=store, artifacts=engine._artifacts, embedding_client=embedder,
+        reranker_client=int8_reranker, device=device,
+    )
+    with CountIntMM() as int_mm:
+        arms["int8_reranker"] = eval_arm(int8_engine, corpus, batches, None)
+    if int_mm.calls == 0:
+        raise AssertionError("the int8 reranker arm never reached torch._int_mm")
+    del int8_engine, int8_reranker
+    with Phase("6b. the entry points as processes over the chain's artifacts"):
+        run_entry_points(work, corpus, embedder_dir, reranker_dir, repo, device, card)
+    store.close()
     metrics, eval_s, counts = arms["full_pipeline"]
     misses = hold_to_reference("quality", metrics, CHAIN_REFERENCE, eval_s, counts, batches, card)
     log("  " + json.dumps({"quality_chain": metrics, "seconds": {
@@ -3376,10 +3470,11 @@ E2E_CEILINGS = (
 )
 # One-sided floors from the committed JAX runs, a TPU's (float32 products
 # at the TPU's default precision): (report, path, floor, the committed
-# value, the JAX script's own float32 run from the same init). At seed 0
-# a floor is held where that float32 run meets it, and logged where it
-# does not (ROADMAP C7); at another seed no reference run exists, and
-# every floor is logged.
+# value, the JAX script's own float32 run from the same init). Logged at
+# every seed, held at none: the trained models are held to the JAX
+# scripts' own float32 runs from the same init instead (ROADMAP C7,
+# decided): the embedder by E2E_SAME_INIT, the reranker by
+# E2E_RERANKER_FLOORS.
 E2E_FLOORS = (
     ("embedder", ("results", "trained", "dense_only", "recall_at_10"), 0.9785 - 10 / 512, 0.9785, 0.9609),
     ("embedder", ("results", "trained", "dense_only", "recall_at_1"), 0.8984 - 20 / 512, 0.8984, 0.8574),
@@ -3395,9 +3490,11 @@ E2E_FLOORS = (
 # (runs/jax_f32_cpu/embedder_eval.json: scripts/train_embedder_e2e.py at
 # these arguments with --platform cpu). The port from that init has
 # matched it to the fourth decimal on the CPU and on the card. The
-# reranker's run is not held so: from the same init the JAX script and
-# the port reach direct 0.6738 and 0.7949 on one CPU, its training being
-# chaotic (runs/jax_f32_cpu/reranker_eval.json, PERF.md section 6).
+# reranker's run is not held so: its training is chaotic (ROADMAP C8:
+# JAX's own run from the init moved one ulp leaves JAX's as early as the
+# port's does, runs/jax_f32_cpu/reranker_trajectory.json), so from the
+# same init the JAX script and the port reach direct 0.6738 and 0.7949
+# on one CPU.
 E2E_SAME_INIT = {
     ("results", "trained", "dense_only", "recall_at_10"): 0.9609,
     ("results", "trained", "dense_only", "recall_at_1"): 0.8574,
@@ -3408,10 +3505,21 @@ E2E_SAME_INIT = {
 # Four queries of 512: a metric of one query in [0, 1] each (a recall, or
 # MRR's reciprocal rank) moves by at most this when four queries change.
 E2E_SAME_INIT_SLACK = 4 / 512
+# The reranker at seed 0, one-sided: each figure at least the JAX
+# script's own float32 run from the same init
+# (runs/jax_f32_cpu/reranker_eval.json) less E2E_SAME_INIT_SLACK. The
+# floor is the lower of that run and its perturbed twin's; the twin's
+# figures are not measured (a JAX run of both scripts on the CPU takes
+# about three hours), so the run alone sets it.
+E2E_RERANKER_FLOORS = {
+    ("reranker_direct", "trained", "recall_at_1_of_50"): 0.6738,
+    ("pipeline", "full_pipeline_trained", "recall_at_1"): 0.457,
+    ("pipeline", "full_pipeline_trained", "recall_at_10"): 0.9805,
+}
 # full_pipeline_random_rerank's recall@1 lies at least this far under the
 # trained arm's (committed: 0.3164 against 0.8105; the JAX script's own
 # float32 run from the same init: 0.2852 against 0.457, so logged, as
-# E2E_FLOORS' missed floors are).
+# E2E_FLOORS are).
 E2E_RANDOM_RERANK_GAP = 0.2
 # K1-f32's top-10 overlap with the exact scan on the trained geometry
 # (committed for the fused scan: 0.9812).
@@ -3636,16 +3744,22 @@ def run_training_chain(device, kernels, card, repo: Path, seed: int) -> None:
             problems.append(f"{name} {'/'.join(path)} {got} over {bound}")
     for name, path, bound, committed, reference in E2E_FLOORS:
         got = _at(reports[name], path)
-        ok = got >= bound - 1e-9
-        held = seed == 0 and reference >= bound
         log(
-            f"  {name} {'/'.join(path)}: {got:.4f} (min {bound:.4f}; committed "
+            f"  {name} {'/'.join(path)}: {got:.4f} (TPU floor {bound:.4f}, logged; committed "
             f"{committed:.4f}, {got - committed:+.4f}; JAX float32 from the same init "
-            f"{reference:.4f}){'' if ok else ' MISS'}{'' if held else ' (logged: C7)'}"
+            f"{reference:.4f}){'' if got >= bound - 1e-9 else ' under the TPU floor'}"
         )
-        if held and not ok:
-            problems.append(f"{name} {'/'.join(path)} {got} under {bound}")
     if seed == 0:
+        for path, want in E2E_RERANKER_FLOORS.items():
+            got = _at(reports["reranker"], path)
+            ok = got >= want - E2E_SAME_INIT_SLACK - 1e-9
+            log(
+                f"  reranker {'/'.join(path)}: {got:.4f} (min {want - E2E_SAME_INIT_SLACK:.4f}: "
+                f"JAX float32 from the same init {want:.4f}, {got - want:+.4f}){'' if ok else ' MISS'}"
+            )
+            if not ok:
+                problems.append(f"reranker {'/'.join(path)} {got} more than "
+                                f"{E2E_SAME_INIT_SLACK} under JAX's {want}")
         for path, want in E2E_SAME_INIT.items():
             got = _at(reports["embedder"], path)
             ok = abs(got - want) <= E2E_SAME_INIT_SLACK + 1e-9
@@ -3660,7 +3774,7 @@ def run_training_chain(device, kernels, card, repo: Path, seed: int) -> None:
     pipeline = reports["reranker"]["pipeline"]
     gap = pipeline["full_pipeline_trained"]["recall_at_1"] - pipeline["full_pipeline_random_rerank"]["recall_at_1"]
     log(f"  reranker: full_pipeline_random_rerank recall@1 {gap:.4f} under the trained arm's "
-        f"(min {E2E_RANDOM_RERANK_GAP}; logged: C7)")
+        f"(TPU floor {E2E_RANDOM_RERANK_GAP}, logged)")
     fused = reports["embedder"]["fused_selection_on_trained_geometry"]["recall_at_10_vs_exact"]
     k1 = reports["embedder"]["bin_topk_selection_on_trained_geometry"]["recall_at_10_vs_exact"]
     log(
@@ -3679,6 +3793,472 @@ def run_training_chain(device, kernels, card, repo: Path, seed: int) -> None:
     for forbidden in ("jax", "lean_explore_tpu", "optax"):
         if forbidden in sys.modules:
             raise AssertionError(f"{forbidden} was imported on the training chain")
+
+
+# ----------------------------------------------------------------------
+# Phase 8: the extraction pipeline, from doc-gen4's output to a served query
+# ----------------------------------------------------------------------
+
+# Declarations informalized over HTTP, through the port's OpenRouterClient
+# against a stub server on localhost, in an extraction of their own.
+EXTRACTION_PHASE = "8. the extraction pipeline from doc-gen4's output at the 200k chain"
+EXTRACTION_HTTP = dict(n_decls=1000, n_concepts=100, n_eval=32, seed=1, body_sentences=5)
+EXTRACTION_MAX_CONCURRENT = 100
+# The pipeline's embedding rows against phase 6's rows of the same
+# documents: one float32 client, one input, so the same bits but for the
+# batch a document falls in (the trunk pads each batch to its own length).
+EXTRACTION_EMBED_TOL = 1e-5
+EXTRACTION_SERVICE_BATCH = 128
+BPE_FIXTURE = Path("tests") / "fixtures" / "bpe_qwen_style"
+
+
+def _blob_nat(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        low, n = n & 0x7F, n >> 7
+        out.append(low | 0x80 if n else low)
+        if not n:
+            return bytes(out)
+
+
+def _blob_string(s: str) -> bytes:
+    raw = s.encode("utf-8")
+    return _blob_nat(len(raw)) + raw
+
+
+def _blob_const(name: str, child: bytes) -> bytes:
+    """leansqlite's RenderedCode: a const tag naming ``name`` (Name.str
+    parts), over ``child``."""
+    parts = name.split(".")
+    name_bytes = bytes([1] * len(parts)) + b"\x00" + b"".join(_blob_string(p) for p in parts)
+    return b"\x01\x02" + name_bytes + child
+
+
+def _blob_text(s: str) -> bytes:
+    return b"\x00" + _blob_string(s)
+
+
+def write_docgen_workspace(corpus, lean_root: Path) -> Path:
+    """doc-gen4's output for ``corpus`` in the mathlib workspace of
+    ``lean_root``: one Lean file per module under .lake/packages/mathlib4,
+    each declaration's source text on a line of its own, and
+    .lake/build/api-docs.db (name_info with a RenderedCode type naming
+    the declaration itself, a dependency the parse drops, so the store's
+    dependencies stay the corpus's none and the engine's dependency boost
+    leaves the chain's ranking as phase 6 measures it;
+    declaration_ranges; markdown docstrings; modules with their source
+    URLs)."""
+    import sqlite3
+
+    ws = lean_root / "mathlib"
+    build = ws / ".lake" / "build"
+    build.mkdir(parents=True)
+    by_module: dict[str, list] = {}
+    for decl in corpus.declarations:
+        by_module.setdefault(decl.module, []).append(decl)
+    name_info, ranges, docs, modules = [], [], [], []
+    for module, decls in by_module.items():
+        path = Path(*module.split(".")).with_suffix(".lean")
+        source = ws / ".lake" / "packages" / "mathlib4" / path
+        source.parent.mkdir(parents=True, exist_ok=True)
+        source.write_text("".join(d.source_text + "\n" for d in decls), encoding="utf-8")
+        modules.append((module, "https://github.com/leanprover-community/mathlib4/blob/"
+                                f"chip-smoke/{path.as_posix()}"))
+        for pos, decl in enumerate(decls):
+            blob = _blob_const(decl.name, _blob_text(decl.source_text))
+            name_info.append((module, pos, "theorem", decl.name, blob, 1))
+            ranges.append((module, pos, pos + 1, pos + 1))
+            if decl.docstring:
+                docs.append((module, pos, decl.docstring))
+    conn = sqlite3.connect(str(build / "api-docs.db"))
+    try:
+        conn.executescript(
+            "CREATE TABLE name_info (module_name TEXT, position INT, kind TEXT, name TEXT,"
+            " type BLOB, render INT);"
+            "CREATE TABLE declaration_ranges (module_name TEXT, position INT,"
+            " start_line INT, end_line INT);"
+            "CREATE TABLE declaration_markdown_docstrings (module_name TEXT, position INT,"
+            " text TEXT);"
+            "CREATE TABLE modules (name TEXT, source_url TEXT);"
+        )
+        conn.executemany("INSERT INTO name_info VALUES (?,?,?,?,?,?)", name_info)
+        conn.executemany("INSERT INTO declaration_ranges VALUES (?,?,?,?)", ranges)
+        conn.executemany("INSERT INTO declaration_markdown_docstrings VALUES (?,?,?)", docs)
+        conn.executemany("INSERT INTO modules VALUES (?,?)", modules)
+        conn.commit()
+    finally:
+        conn.close()
+    return lean_root
+
+
+def _prompt_name(prompt: str) -> str:
+    start = prompt.index("Declaration name: ") + len("Declaration name: ")
+    return prompt[start : prompt.index("\n", start)]
+
+
+class CorpusInformalizer:
+    """The informalization stage's client in process: answers each prompt
+    with its declaration's synthetic informalization."""
+
+    def __init__(self, corpus):
+        self.texts = {d.name: d.informalization for d in corpus.declarations}
+        self.calls = 0
+
+    async def generate(self, prompt, model, temperature=0.3):
+        self.calls += 1
+        return self.texts[_prompt_name(prompt)]
+
+
+class StubOpenRouter:
+    """A chat-completions server on localhost answering each prompt with
+    its declaration's synthetic informalization; records the names."""
+
+    def __init__(self, corpus):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        texts = {d.name: d.informalization for d in corpus.declarations}
+        self.served: list[str] = []
+        served = self.served
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                name = _prompt_name(body["messages"][0]["content"])
+                served.append(name)
+                data = json.dumps({"choices": [{"message": {"content": texts[name]}}]}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        class Server(ThreadingHTTPServer):
+            # The client's requests in flight, each on a connection of its
+            # own: a listen backlog under that drops connections, which the
+            # kernel retries only after a second.
+            request_queue_size = 4 * EXTRACTION_MAX_CONCURRENT
+            daemon_threads = True
+
+        self.server = Server(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/api/v1"
+
+    def __enter__(self):
+        import threading
+
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+        return False
+
+
+def run_extraction_stages(corpus, root: Path, *, stages, informalize_client=None,
+                          embed_client=None, embed_batch_size: int = 256,
+                          extraction: Path | None = None) -> tuple[Path, dict]:
+    """The port's ``run_pipeline`` with ``stages`` over the doc-gen4
+    workspace of ``corpus`` under ``root``, with the data and cache roots set
+    to fresh directories there (so no earlier declarations.db feeds the
+    stages' caches). Without ``extraction`` the workspace is written first
+    (its seconds as "workspace") and a new extraction directory made; with
+    it the stages go on in that one. Returns the extraction directory and
+    each stage's seconds."""
+    from lean_explore_tpu_torch.config import Config
+    from lean_explore_tpu_torch.extract import __main__ as extract_cli
+    from lean_explore_tpu_torch.extract import doc_parser
+
+    seconds = {}
+    if extraction is None:
+        t = time.perf_counter()
+        write_docgen_workspace(corpus, root / "lean")
+        seconds["workspace"] = time.perf_counter() - t
+    saved = Config.DATA_DIRECTORY, Config.CACHE_DIRECTORY, doc_parser.get_extraction_order
+    Config.DATA_DIRECTORY, Config.CACHE_DIRECTORY = root / "data", root / "cache"
+    # The synthetic workspace is mathlib's alone.
+    doc_parser.get_extraction_order = lambda: ["mathlib"]
+    try:
+        extraction = extraction or Config.create_timestamped_extraction_path()
+        seconds.update(asyncio.run(extract_cli.run_pipeline(
+            extraction, **{f"run_{s}": s in stages for s in ("docgen", "parse", "informalize",
+                                                            "embed", "index")},
+            lean_root=root / "lean", informalize_model="chip-smoke",
+            max_concurrent=EXTRACTION_MAX_CONCURRENT, embed_batch_size=embed_batch_size,
+            limit=None, informalize_client=informalize_client, embed_client=embed_client,
+        )))
+    finally:
+        Config.DATA_DIRECTORY, Config.CACHE_DIRECTORY, doc_parser.get_extraction_order = saved
+    return extraction, seconds
+
+
+def hold_store_to_corpus(extraction: Path, corpus) -> dict[str, np.ndarray]:
+    """The parsed and informalized store holds ``corpus``'s declarations:
+    names, modules, source texts (each its doc-gen4 line, so with the
+    line's newline) and informalizations. Returns the stored embeddings by
+    name (empty when the stage did not run)."""
+    import sqlite3
+
+    conn = sqlite3.connect(str(extraction / "declarations.db"))
+    try:
+        rows = conn.execute("SELECT name, module, source_text, informalization, "
+                            "informalization_embedding FROM declarations").fetchall()
+    finally:
+        conn.close()
+    want = {d.name: (d.module, d.source_text + "\n", d.informalization)
+            for d in corpus.declarations}
+    got = {name: (module, source, text) for name, module, source, text, _ in rows}
+    if got != want:
+        missing = sorted(set(want) - set(got))[:3]
+        differing = [n for n in want if n in got and got[n] != want[n]][:3]
+        raise AssertionError(f"the extracted store differs from make_corpus: {len(got)} rows of "
+                             f"{len(want)}, missing {missing}, differing "
+                             f"{[(n, got[n], want[n]) for n in differing]}")
+    return {name: np.frombuffer(blob, "<f4") for name, *_, blob in rows if blob is not None}
+
+
+def check_bpe_reader(corpus, repo: Path, card: str) -> dict:
+    """The byte-level BPE reader (the committed Qwen-style fixture) over
+    every informalization of ``corpus``: docs/s of the encode and of the
+    decode round trip, which must give each text back, beside the
+    WordLevel reader of the chain's embedder on the first SPLIT_DOCS."""
+    from lean_explore_tpu_torch.models.bpe import ByteLevelBPETokenizer
+    from lean_explore_tpu_torch.models.tokenizer import load_tokenizer
+
+    docs = [d.informalization for d in corpus.declarations]
+    bpe = load_tokenizer(repo / BPE_FIXTURE)
+    if not isinstance(bpe, ByteLevelBPETokenizer):
+        raise AssertionError(f"{BPE_FIXTURE} loaded as {type(bpe).__name__}")
+    t = time.perf_counter()
+    rows = bpe(docs)["input_ids"]
+    encode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    bad = sum(bpe.decode(ids) != doc for ids, doc in zip(rows, docs))
+    decode_s = time.perf_counter() - t
+    if bad:
+        raise AssertionError(f"BPE decode round trip: {bad} of {len(docs)} texts differ")
+    wordlevel = load_tokenizer(repo / CHAIN_DIR / "embedder" / "checkpoint")
+    t = time.perf_counter()
+    wordlevel(docs[:SPLIT_DOCS])
+    word_s = time.perf_counter() - t
+    rates = {"bpe_docs_per_s": len(docs) / encode_s, "bpe_decode_docs_per_s": len(docs) / decode_s,
+             "wordlevel_docs_per_s": min(SPLIT_DOCS, len(docs)) / word_s,
+             "bpe_tokens_per_doc": sum(map(len, rows)) / len(docs)}
+    log(
+        f"  BPE reader ({BPE_FIXTURE}, {len(bpe.vocab)} tokens) over {len(docs)} "
+        f"informalizations: encode {rates['bpe_docs_per_s']:.1f} docs/s "
+        f"({rates['bpe_tokens_per_doc']:.1f} tokens a doc), decode round trip "
+        f"{rates['bpe_decode_docs_per_s']:.1f} docs/s, every text back; the chain's "
+        f"WordLevel reader {rates['wordlevel_docs_per_s']:.1f} docs/s over the first "
+        f"{min(SPLIT_DOCS, len(docs))}; host CPU; {card}"
+    )
+    return rates
+
+
+def extraction_host_stages(repo: Path, root: Path, card: str) -> dict:
+    """Phase 8's host stages, which launch nothing on the card: 8a, 1,000
+    declarations parsed and informalized through ``OpenRouterClient``
+    against a stub server on localhost; the chain's doc-gen4 workspace
+    written, parsed and informalized by the in-process client (the store
+    held to ``make_corpus``); the BPE reader over every informalization.
+    Returns what the device stages go on from."""
+    from lean_explore_tpu_torch.train.synthetic import make_corpus
+    from lean_explore_tpu_torch.util.openrouter_client import OpenRouterClient
+
+    small = make_corpus(**EXTRACTION_HTTP)
+    with StubOpenRouter(small) as stub:
+        client = OpenRouterClient(api_key="chip-smoke", base_url=stub.url)
+        http_extraction, http_s = run_extraction_stages(
+            small, root / "http", stages=("parse", "informalize"), informalize_client=client)
+    hold_store_to_corpus(http_extraction, small)
+    if sorted(stub.served) != sorted(d.name for d in small.declarations):
+        raise AssertionError(f"the stub served {len(stub.served)} prompts, "
+                             f"{len(set(stub.served))} names, of {len(small.declarations)}")
+    n_http = len(small.declarations)
+    log(f"  8a. {n_http} declarations parsed and informalized through OpenRouterClient "
+        f"against a localhost stub ({EXTRACTION_MAX_CONCURRENT} in flight): parse "
+        f"{http_s['parse']:.1f} s, informalize {http_s['informalize']:.1f} s "
+        f"({n_http / http_s['informalize']:.1f} rows/s), every declaration served once")
+
+    t = time.perf_counter()
+    corpus = make_corpus(**CHAIN_CORPUS)
+    log(f"  make_corpus {CHAIN_CORPUS} in {time.perf_counter() - t:.1f} s")
+    informalizer = CorpusInformalizer(corpus)
+    extraction, seconds = run_extraction_stages(
+        corpus, root / "chain", stages=("parse", "informalize"), informalize_client=informalizer)
+    hold_store_to_corpus(extraction, corpus)
+    if informalizer.calls != len(corpus.declarations):
+        raise AssertionError(f"informalized {informalizer.calls} of {len(corpus.declarations)}")
+    rates = check_bpe_reader(corpus, repo, card)
+    return {"extraction": str(extraction), "seconds": seconds, "http_seconds": http_s,
+            "tokenizers": rates}
+
+
+class ExtractionHost:
+    """Phase 8's host stages in a child process (``chip_smoke.py
+    --extraction-host ROOT``), started before phase 7 so that they run
+    beside its training: they load one core of the host and nothing of the
+    card. ``result`` waits for the child, logs what it printed and
+    returns what it wrote; a child that fails or hangs fails the phase,
+    and a child still running when the parent stops is killed."""
+
+    TIMEOUT_S = 900
+
+    def __init__(self, root: Path, card: str):
+        self.root, self.log = root, root / "extraction_host.log"
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--extraction-host", str(root),
+                 "--card", card],
+                stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent,
+            )
+
+    def result(self) -> dict:
+        try:
+            returncode = self.proc.wait(timeout=self.TIMEOUT_S)
+        except subprocess.TimeoutExpired as error:
+            raise AssertionError(f"phase 8's host stages hung: {self.log.read_text()[-3000:]}") from error
+        finally:
+            self.stop()
+        text = self.log.read_text()
+        for line in text.splitlines():
+            if line.startswith("  "):
+                log(line)
+        if returncode != 0:
+            raise AssertionError(f"phase 8's host stages exited {returncode}: {text[-3000:]}")
+        return json.loads((self.root / "extraction_host.json").read_text())
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def run_extraction_host(root: Path, card: str) -> int:
+    """The child of ``ExtractionHost``: the host stages, their record
+    written to ROOT/extraction_host.json."""
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    record = extraction_host_stages(repo, root, card)
+    (root / "extraction_host.json").write_text(json.dumps(record))
+    return 0
+
+
+def run_extraction_chain(device, kernels, card, repo: Path, root: Path,
+                         host: ExtractionHost) -> dict:
+    """Phase 8 in ``root``: the 200k chain built by the port's extraction
+    pipeline, from doc-gen4's output (written here) through parse and
+    informalize (``host``, the child process) and then embed, on the card,
+    and index, each stage timed; then the quality eval over its artifacts
+    and one Service batch at the serving defaults. Returns what phase 6
+    reuses: the corpus, the extraction directory, its open store, the stage
+    seconds, the stored embeddings by name and the f32 embedder."""
+    from lean_explore_tpu_torch.models.store import DeclarationStore
+    from lean_explore_tpu_torch.search.engine import SearchEngine
+    from lean_explore_tpu_torch.train.synthetic import make_corpus
+    from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+    from lean_explore_tpu_torch.util.reranker_client import RerankerClient
+
+    log(card)
+    embedder_dir, reranker_dir = chain_checkpoints(repo)
+    script = load_script(repo, "eval_torch_quality")
+    hosted = host.result()
+    corpus = make_corpus(**CHAIN_CORPUS)
+    embedder = EmbeddingClient(
+        str(embedder_dir), max_length=CHAIN_EMB_MAX_LENGTH, batch_size=script.EMBED_BATCH,
+        dtype=torch.float32, device=device,
+    )
+    extraction, device_s = run_extraction_stages(
+        corpus, root / "chain", stages=("embed", "index"), embed_client=embedder,
+        embed_batch_size=script.EMBED_BATCH, extraction=Path(hosted["extraction"]),
+    )
+    seconds = {**hosted["seconds"], **device_s}
+    n = len(corpus.declarations)
+    embeddings = hold_store_to_corpus(extraction, corpus)
+    manifest = json.loads((extraction / "manifest.json").read_text())
+    if len(embeddings) != n or manifest["n_embedded"] != n:
+        raise AssertionError(f"embedded {len(embeddings)}, manifest n_embedded "
+                             f"{manifest['n_embedded']}, of {n}")
+    log("  8b. stages (s, rows/s): " + "; ".join(
+        f"{stage} {s:.1f} ({n / s:.1f})" for stage, s in seconds.items())
+        + f"; {n} declarations, the store equal to make_corpus's, manifest n_embedded "
+        f"{manifest['n_embedded']}; parse and informalize in a child process beside "
+        f"phase 7; {card}")
+
+    # 8c. The quality eval over the pipeline's artifacts, f32 corpus.
+    store = DeclarationStore(extraction / "declarations.db")
+    reranker = RerankerClient(str(reranker_dir), max_length=CHAIN_RR_MAX_LENGTH,
+                              dtype=torch.float32, device=device)
+    engine, load_s = script.open_engine(extraction, store, embedder, reranker, device)
+    batches = -(-len(corpus.eval_queries) // 64)
+    metrics, eval_s, counts = eval_arm(engine, corpus, batches, None)
+    misses = hold_to_reference("8c. extraction's index", metrics, CHAIN_REFERENCE, eval_s,
+                               counts, batches, card)
+    if misses:
+        raise AssertionError(f"the extraction's index: {misses} beyond {CHAIN_QUERY_SLACK} "
+                             f"queries (MRR {CHAIN_MRR_SLACK}) of the committed JAX numbers")
+    del engine, reranker
+
+    # 8d. One Service batch at the serving defaults (bf16 corpus, K1 once)
+    # against an in-process engine built the same default way.
+    from lean_explore_tpu_torch.config import Config
+    from lean_explore_tpu_torch.search.service import Service
+
+    queries = [q for q, _ in corpus.eval_queries[:EXTRACTION_SERVICE_BATCH]]
+    saved = Config.EMBEDDING_MAX_LENGTH, Config.RERANKER_MAX_LENGTH
+    Config.EMBEDDING_MAX_LENGTH, Config.RERANKER_MAX_LENGTH = CHAIN_EMB_MAX_LENGTH, CHAIN_RR_MAX_LENGTH
+    try:
+        def default_engine():
+            engine = SearchEngine(extraction, embedding_model_name=str(embedder_dir),
+                                  reranker_model_name=str(reranker_dir), device=device)
+            engine.embedding_client, engine.reranker_client  # load now
+            return engine
+
+        service, reference = Service(default_engine()), default_engine()
+        dense = service.engine._artifacts.dense
+        if dense.embeddings.dtype != torch.bfloat16:
+            raise AssertionError(f"the serving corpus is {dense.embeddings.dtype}")
+        with CountLaunches() as launched:
+            t = time.perf_counter()
+            responses = asyncio.run(service.search_batch(queries))
+            torch.cuda.synchronize()
+            batch_s = time.perf_counter() - t
+        expect_launches("8d. Service.search_batch", launched.counts, "bin_topk", 1)
+        if launched.counts["bin_topk"] != 1:
+            raise AssertionError(f"K1 launched {launched.counts['bin_topk']} times in one batch")
+        want = asyncio.run(reference.search_batch(queries, limit=20, rerank_top=50))
+        got_ids = [[r.id for r in resp.results] for resp in responses]
+        want_ids = [[r.id for r in results] for results in want]
+        if got_ids != want_ids:
+            bad = sum(g != w for g, w in zip(got_ids, want_ids))
+            raise AssertionError(f"8d: {bad} of {len(queries)} queries' ids differ")
+    finally:
+        Config.EMBEDDING_MAX_LENGTH, Config.RERANKER_MAX_LENGTH = saved
+    del service, reference
+    torch.cuda.empty_cache()
+    log(f"  8d. Service.search_batch of {len(queries)} queries at the serving defaults "
+        f"(bf16 corpus): {batch_s * 1e3:.1f} ms, K1 launches {launched.counts['bin_topk']}, "
+        f"ids equal to an in-process engine built the same default way; {card}")
+    rates = hosted["tokenizers"]
+    log("  " + json.dumps({"extraction_chain": {
+        "seconds": {k: round(v, 3) for k, v in seconds.items()},
+        "rows_per_s": {k: round(n / v, 1) for k, v in seconds.items()},
+        "http_seconds": {k: round(v, 3) for k, v in hosted["http_seconds"].items()},
+        "quality": metrics, "eval_s": round(eval_s, 3), "load_s": round(load_s, 3),
+        "service_batch_ms": round(batch_s * 1e3, 1), "tokenizers": rates}}))
+    by_name = {k["name"]: k for k in kernels}
+    if "bin_topk" in by_name:
+        by_name["bin_topk"]["extraction_service_launches"] = launched.counts["bin_topk"]
+    by_name["bin_topk_f32"]["extraction_eval_launches"] = counts["bin_topk"]
+    for forbidden in ("jax", "lean_explore_tpu"):
+        if forbidden in sys.modules:
+            raise AssertionError(f"{forbidden} was imported on the extraction path")
+    return dict(corpus=corpus, extraction=extraction, store=store, seconds=seconds,
+                embeddings=embeddings, embedder=embedder)
 
 
 if __name__ == "__main__":

@@ -97,6 +97,14 @@ class Config:
     (``SearchEngine(use_local_data=True)``)."""
     EXTRACTION_DATABASE_PATH: pathlib.Path = ACTIVE_DATA_PATH / "declarations.db"
 
+    PACKAGES_ROOT: pathlib.Path = pathlib.Path(
+        os.getenv(
+            "LEAN_EXPLORE_PACKAGES_ROOT",
+            pathlib.Path(__file__).resolve().parent.parent / "lean",
+        )
+    )
+    """Per-package Lean workspaces root. Env: LEAN_EXPLORE_PACKAGES_ROOT."""
+
     EMBEDDING_MODEL_NAME: str = os.getenv(
         "LEAN_EXPLORE_EMBEDDING_MODEL", "Qwen/Qwen3-Embedding-0.6B"
     )

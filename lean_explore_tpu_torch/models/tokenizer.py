@@ -3,13 +3,15 @@
 ``encode_batch`` and the buckets are those of the JAX package
 (lean_explore_tpu/models/tokenizer.py): right padding to a few (batch,
 length) buckets, pad rows keeping one valid token. The tokenizer itself is
-a pure-Python reader of a HuggingFace ``tokenizer.json`` whose model is
-``WordLevel`` and whose pre-tokenizers are ``Whitespace`` and
-``CharDelimiterSplit`` (alone or in a ``Sequence``): the kind every
-committed checkpoint carries. Any other model type, a normalizer or a
-post-processor raises.
+a pure-Python reader of a HuggingFace ``tokenizer.json``: here one whose
+model is ``WordLevel`` and whose pre-tokenizers are ``Whitespace`` and
+``CharDelimiterSplit`` (alone or in a ``Sequence``), the kind every
+committed checkpoint carries, and in ``bpe`` a byte-level BPE (Qwen's
+kind). ``load_tokenizer`` picks the reader by the model's type; another
+type, or a part a reader does not apply, raises.
 """
 
+import functools
 import json
 import logging
 import re
@@ -18,18 +20,42 @@ from pathlib import Path
 
 import numpy as np
 
+from lean_explore_tpu_torch.models.unicode_classes import SPACE, WORD, char_class
+
 logger = logging.getLogger(__name__)
 
 LENGTH_BUCKETS = (32, 64, 128, 256, 512)
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
-# HuggingFace's Whitespace pre-tokenizer: runs of word characters, or runs
-# of characters that are neither word nor space.
-_WHITESPACE_RE = re.compile(r"\w+|[^\w\s]+")
+
+class UnicodePattern:
+    """A regex over HuggingFace's character classes (``unicode_classes``),
+    compiled twice from ``build(cc)``, where ``cc`` takes ``char_class``'s
+    arguments: once over every code point, once over the BMP alone, which
+    ``re`` matches about ten times faster. ``findall`` takes the BMP one
+    unless the text holds an astral character."""
+
+    def __init__(self, build):
+        self._full = re.compile(build(char_class))
+        self._bmp = re.compile(build(functools.partial(char_class, bmp=True)))
+
+    def pattern(self, text: str) -> re.Pattern:
+        return self._bmp if not text or max(text) <= "\uffff" else self._full
+
+    def findall(self, text: str) -> list[str]:
+        return self.pattern(text).findall(text)
+
+
+# HuggingFace's Whitespace pre-tokenizer, ``\w+|[^\w\s]+``, with its own
+# engine's ``\w`` and ``\s``: Python's count subscript digits as word
+# characters, combining marks not, and \x1c-\x1f as space.
+_WHITESPACE = UnicodePattern(
+    lambda cc: f"{cc(WORD)}+|{cc(WORD, SPACE, negate=True)}+"
+)
 
 
 def _split_whitespace(pieces: list[str]) -> list[str]:
-    return [m for piece in pieces for m in _WHITESPACE_RE.findall(piece)]
+    return [m for piece in pieces for m in _WHITESPACE.findall(piece)]
 
 
 def _split_char(delimiter: str):
@@ -81,8 +107,8 @@ class WordLevelTokenizer:
         model = spec.get("model", {})
         if model.get("type") != "WordLevel":
             raise ValueError(
-                f"unsupported tokenizer model {model.get('type')!r}: only "
-                "WordLevel is read (a BPE reader is a later slice)"
+                f"unsupported tokenizer model {model.get('type')!r}: this "
+                "reader takes WordLevel (models.bpe takes BPE)"
             )
         if spec.get("normalizer") is not None:
             raise ValueError("tokenizer normalizers are not supported")
@@ -177,9 +203,11 @@ class WordLevelTokenizer:
         return " ".join(self._id_to_token[int(i)] for i in ids)
 
 
-def load_tokenizer(model_dir: str | Path) -> WordLevelTokenizer:
+def load_tokenizer(model_dir: str | Path):
     """Read ``tokenizer.json`` and the special tokens named in
-    ``tokenizer_config.json`` from a local model directory."""
+    ``tokenizer_config.json`` from a local model directory: a
+    ``WordLevelTokenizer``, or a ``bpe.ByteLevelBPETokenizer`` for a BPE
+    model."""
     model_dir = Path(model_dir)
     path = model_dir / "tokenizer.json"
     if not path.exists():
@@ -194,7 +222,13 @@ def load_tokenizer(model_dir: str | Path) -> WordLevelTokenizer:
                 value = value.get("content")
             if isinstance(value, str):
                 special[key] = value
-    return WordLevelTokenizer.from_file(path, **special)
+    with open(path, encoding="utf-8") as f:
+        spec = json.load(f)
+    if spec.get("model", {}).get("type") == "BPE":
+        from lean_explore_tpu_torch.models.bpe import ByteLevelBPETokenizer
+
+        return ByteLevelBPETokenizer(spec, **special)
+    return WordLevelTokenizer(spec, **special)
 
 
 def unk_fraction(tokenizer, texts: list[str], max_texts: int = 64) -> float:

@@ -20,7 +20,9 @@ fused int8 reranker's ``rerank_sync`` and ``scripts/eval_torch_quality.py``
 (its full and cascade arms) at a tiny size, and then reports which of the
 forbidden modules are in ``sys.modules``. Another runs five steps of each
 end-to-end training script (scripts/train_torch_*_e2e.py) and reports the
-same.
+same, and a third the extraction stages (a doc-gen4 database parsed,
+informalized through a stand-in client, the OpenRouter client built) and
+the byte-level BPE reader on the committed fixture.
 """
 
 import json
@@ -32,7 +34,7 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = (
     "jax", "optax", "orbax", "lean_explore_tpu", "transformers", "tokenizers",
     "pydantic", "safetensors", "click", "rich", "httpx", "requests", "tenacity",
-    "typer", "fastapi", "mcp",
+    "typer", "fastapi", "mcp", "regex",
 )
 
 SCRIPT = r"""
@@ -250,3 +252,60 @@ def test_training_scripts_import_no_forbidden_module():
     assert proc.returncode == 0, proc.stderr[-3000:]
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert loaded == [], f"the port's training scripts imported {loaded}"
+
+
+EXTRACTION = r"""
+import asyncio, json, sqlite3, sys, tempfile
+from pathlib import Path
+
+from lean_explore_tpu_torch.extract import doc_gen4, doc_parser, github, informalize, packages
+from lean_explore_tpu_torch.extract.types import ParsedDeclaration
+from lean_explore_tpu_torch.models import bpe, unicode_classes
+from lean_explore_tpu_torch.models.store import DeclarationStore
+from lean_explore_tpu_torch.models.tokenizer import load_tokenizer
+from lean_explore_tpu_torch.util.openrouter_client import OpenRouterClient
+
+root = Path(tempfile.mkdtemp())
+ws = root / "mathlib"
+(ws / ".lake" / "build").mkdir(parents=True)
+src = ws / ".lake" / "packages" / "mathlib4" / "Mathlib"
+src.mkdir(parents=True)
+(src / "A.lean").write_text("theorem Nat.x : True := trivial\n")
+conn = sqlite3.connect(str(ws / ".lake" / "build" / "api-docs.db"))
+conn.executescript(
+    "CREATE TABLE name_info (module_name, position, kind, name, type, render);"
+    "CREATE TABLE declaration_ranges (module_name, position, start_line, end_line);"
+    "CREATE TABLE modules (name, source_url);"
+    "INSERT INTO name_info VALUES ('Mathlib.A', 0, 'theorem', 'Nat.x', NULL, 1);"
+    "INSERT INTO declaration_ranges VALUES ('Mathlib.A', 0, 1, 1);"
+    "INSERT INTO modules VALUES ('Mathlib.A', "
+    "'https://github.com/leanprover-community/mathlib4/blob/a/Mathlib/A.lean');")
+conn.commit()
+conn.close()
+doc_parser.get_extraction_order = lambda: ["mathlib"]
+store = DeclarationStore(":memory:", create=True)
+assert doc_parser.extract_declarations(store, root) == 1
+
+class Echo:
+    async def generate(self, prompt, model, temperature=0.3):
+        return "**Echo.** " + prompt[:10]
+
+n = asyncio.run(informalize.informalize_declarations(store, client=Echo(), use_cache=False))
+assert n == 1
+OpenRouterClient(api_key="k")
+tok = load_tokenizer("tests/fixtures/bpe_qwen_style")
+assert isinstance(tok, bpe.ByteLevelBPETokenizer)
+assert tok.decode(tok("x² ∀ 😀")["input_ids"]) == "x² ∀ 😀"
+print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
+"""
+
+
+def test_extraction_and_bpe_import_no_forbidden_module():
+    code = f"FORBIDDEN = {FORBIDDEN!r}\n" + EXTRACTION
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert loaded == [], f"the port's extraction path or BPE reader imported {loaded}"

@@ -35,7 +35,9 @@ from lean_explore_tpu_torch.index.dense import DenseIndex
 from lean_explore_tpu_torch.models.store import Declaration, DeclarationStore
 from lean_explore_tpu_torch.train.synthetic import make_corpus
 from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+from tests.extract.test_pipeline_e2e import FakeOpenRouter, lean_root  # noqa: F401
 from tests.helpers import make_tiny_model_dir
+from tests.test_torch_extract import fake_doc_gen4
 
 ARTIFACT_FILES = (
     "dense_embeddings.npy", "dense_ids.npy", "bm25_name_spaced.npz",
@@ -251,11 +253,45 @@ def test_cli_embeds_and_indexes_the_latest_extraction(tiny_embedder, tmp_path, m
 @pytest.mark.parametrize(
     "argv", [[], ["--run-doc-gen4"], ["--parse", "--embed"], ["--informalize"]]
 )
-def test_cli_unported_stages_raise_before_any_stage(argv, tmp_path, monkeypatch):
+def test_cli_runs_the_stages_it_is_given(argv, lean_root, tiny_embedder, tmp_path, monkeypatch):
+    """The CLI on tests/extract/test_pipeline_e2e.py's fake lean root, with
+    doc-gen4's subprocess layer faked and a stand-in for the OpenRouter
+    client: every stage without flags (Lake's commands, three parsed,
+    informalized and embedded declarations, a complete index), else only
+    the stages named."""
+    from lean_explore_tpu_torch.extract import doc_gen4, doc_parser, packages
+    from lean_explore_tpu_torch.util import openrouter_client
+
     monkeypatch.setattr(Config, "DATA_DIRECTORY", tmp_path / "data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        cli.main(argv)
-    assert not (tmp_path / "data").exists()
+    monkeypatch.setattr(Config, "CACHE_DIRECTORY", tmp_path / "cache")
+    monkeypatch.setattr(Config, "PACKAGES_ROOT", lean_root)
+    monkeypatch.setattr(Config, "EMBEDDING_MODEL_NAME", str(tiny_embedder))
+    monkeypatch.setattr(Config, "EMBEDDING_MAX_LENGTH", 32)
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    for module in (packages, doc_parser, doc_gen4):
+        monkeypatch.setattr(module, "get_extraction_order", lambda: ["mathlib"])
+    lake = fake_doc_gen4(monkeypatch, doc_gen4)
+    llm = FakeOpenRouter()
+    monkeypatch.setattr(openrouter_client, "OpenRouterClient", lambda: llm)
+
+    assert cli.main(argv) == 0
+    (extraction,) = (tmp_path / "data").iterdir()
+    with DeclarationStore(extraction / "declarations.db") as store:
+        rows = list(store.iter_all())
+    ran = {"docgen": bool(lake.calls), "parse": bool(rows), "informalize": llm.calls > 0,
+           "embed": any(r.informalization_embedding for r in rows),
+           "index": is_complete_index(extraction)}
+    want = {
+        (): dict.fromkeys(ran, True),
+        ("--run-doc-gen4",): dict.fromkeys(ran, False) | {"docgen": True},
+        ("--parse", "--embed"): dict.fromkeys(ran, False) | {"parse": True},
+        ("--informalize",): dict.fromkeys(ran, False),
+    }[tuple(argv)]
+    assert ran == want
+    if not argv:
+        assert ("run", ("lake", "update"), "mathlib") in lake.calls
+        assert len(rows) == llm.calls == 3
+        assert all(r.informalization.startswith("**The ") for r in rows)
 
 
 def test_multi_device_embed_mesh_raises(store, monkeypatch):

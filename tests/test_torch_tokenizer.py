@@ -6,10 +6,13 @@ must give the same ids as ``AutoTokenizer`` with truncation, and
 equality: both are integer maps.
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from lean_explore_tpu.models.tokenizer import encode_batch as jax_encode_batch
 from lean_explore_tpu_torch.models.tokenizer import (
@@ -123,3 +126,74 @@ def test_a_post_processor_raises(tmp_path):
     assert hf("a a")["input_ids"] == [2, 2, 1]
     with pytest.raises(ValueError, match="post-processor 'TemplateProcessing'"):
         WordLevelTokenizer.from_file(tmp_path / "tokenizer.json")
+
+
+# HuggingFace's Whitespace pre-tokenizer runs the Oniguruma engine, whose
+# \w and \s are not Python's (ROADMAP C9). One string per category in which
+# the two engines disagree, and the two that showed it on the 200k chain.
+CHAIN_TOKENIZERS = ("runs/scale200k/embedder/tokenizer", "runs/scale200k/reranker/tokenizer")
+CLASS_TEXTS = [
+    "sum of f₁ and x² over the reals",  # No: subscripts, superscripts
+    "the mean x̄ of a list",  # Mn: a combining macron
+    "the sign ः here and ि there",  # Mc: spacing combining marks
+    "ⓐ circled ⓑ letters",  # So
+    "an enclosed a⃝ b",  # Me
+    "x‿y and a⁀b",  # Pc
+    "zero‍width‌joiners",  # Cf
+    "file\x1cgroup\x1drecord\x1eunit\x1fsep",  # Python's \s, not HF's
+    "astral 𝔸 𝟙 𐍈 😀 words",
+]
+
+
+@pytest.mark.parametrize("model_dir", CHAIN_TOKENIZERS)
+def test_unicode_word_classes_are_hf_s(model_dir):
+    from tokenizers import Tokenizer
+
+    from lean_explore_tpu.models.tokenizer import load_tokenizer as jax_load
+
+    hf = Tokenizer.from_file(str(REPO / model_dir / "tokenizer.json"))
+    jax_tok = jax_load(REPO / model_dir)
+    ours = load_tokenizer(REPO / model_dir)
+    got = ours(CLASS_TEXTS)["input_ids"]
+    assert got == [e.ids for e in hf.encode_batch(CLASS_TEXTS)]
+    assert got == jax_tok(CLASS_TEXTS)["input_ids"]
+    assert [len(row) for row in got[:2]] == [10, 6]
+
+
+_CLASS_EDGE = st.sampled_from(
+    list("\x1c\x1d\x1e\x1f₁²x̄ः⃝‿‍‌ⓐ∀ℝ⟨⟩ \t\n") + ["\U0001d538", "\U0001f600"]
+)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.one_of(st.text(max_size=12), _CLASS_EDGE), max_size=8).map("".join))
+def test_unicode_word_classes_property(text):
+    for model_dir in CHAIN_TOKENIZERS:
+        ours, hf = _chain_tokenizers(model_dir)
+        assert ours(text)["input_ids"] == hf.encode(text).ids
+
+
+@functools.cache
+def _chain_tokenizers(model_dir):
+    from tokenizers import Tokenizer
+
+    hf = Tokenizer.from_file(str(REPO / model_dir / "tokenizer.json"))
+    return load_tokenizer(REPO / model_dir), hf
+
+
+def test_committed_classes_rederive_from_tokenizers():
+    """``unicode_classes.py`` is what ``tokenizers`` gives now, over every
+    code point (a few batched pre-tokenizer calls)."""
+    import sys
+
+    import tokenizers
+
+    from lean_explore_tpu_torch.models import unicode_classes
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import make_torch_unicode_classes as make
+
+    derived = make.derive()
+    for name, ranges in derived.items():
+        assert tuple(ranges) == getattr(unicode_classes, name), name
+    assert unicode_classes.TOKENIZERS_VERSION == tokenizers.__version__

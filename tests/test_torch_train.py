@@ -586,3 +586,21 @@ def test_requested_device(monkeypatch, platforms, xla_flags, want):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             requested_device()
+
+
+def test_cross_encoder_loader_equals_jax_at_the_committed_arguments(tmp_path):
+    """The port's CrossEncoderDataLoader gives the JAX loader's first 200
+    batches at scripts/train_reranker_e2e.py's committed arguments (the 20k
+    chain, name variants on, batch 64, max length 96), through
+    scripts/compare_torch_reranker_trajectory.py's check."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+    import compare_torch_reranker_trajectory as trajectory
+
+    args = trajectory.parse_args([])
+    task = trajectory.Task(args, tmp_path, name_variants=True)
+    assert len(task.examples) == 119628
+    batches = trajectory.jax_batches(task, args, 200)
+    shapes = {tuple(x.shape for x in arrays) for _, arrays in zip(range(200), batches)}
+    assert shapes == {((64, 96), (64, 96), (64,))}
