@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels  # phases 1-3b only (build + kernel checks)
     python3 chip_smoke.py --training-chain [--seed N]  # phases 1, 2 and 7
     python3 chip_smoke.py --extraction  # phases 1, 2 and 8
+    python3 chip_smoke.py --mesh  # phases 1, 2 and 9
 
 Phases, each announced before it starts and timed after it ends:
 
@@ -166,8 +167,35 @@ Phases, each announced before it starts and timed after it ends:
    the card: each trainer's pairs/s after its first 100 steps, the
    loader's share of a step, peak memory, embedding docs/s and each eval
    arm's seconds.
+9. the mesh on the one card, as virtual devices (the JAX tests' host
+   devices are virtual too; real cross-card traffic needs more cards).
+   9a (after 4g, on the phase-4 set-up): a ``ShardedDenseIndex`` over
+   ``make_mesh((2, 4), devices=[cuda:0] * 8)`` from the phase-4 corpus in
+   bf16 (300,000 rows padded to 301,056, shards of 75,264), the phase-4
+   clients on the flat data mesh of those 8, ``Service.search_batch``: one
+   warm and two timed batches of 128, K1 exactly 8 times a batch (each
+   position's 64 queries over its shard) and no other kernel; each shard's
+   K1 carry against its plain twin, the merged top-1000 against the plain
+   sharded twin (the same search with the plain carries), dense recall@10
+   against the exact scan >= 0.97, the DP rerank's P(true) on the last
+   batch's groups within RERANK_DP_TOL of one device's, and the final ids
+   logged against phase 4's single-device service (equal top-10s, and for
+   each difference whether the dense candidates or the rerank changed).
+   9b the same index over the corpus in int8 through K2: one warm and one
+   timed batch, K2 8 times a batch, each shard's carry and the merge equal
+   to their plain twins. 9c (after 5d): the contrastive CLI
+   in four processes on the card at ``--mesh 2,2`` (gloo), at phase 5's
+   width cut to 2 layers, flash on, batch 32, queries 64, documents 256:
+   two steps with a checkpoint each, resumed to step 3; then on one device
+   to step 2 from the same init and from the mesh's step-2 checkpoint to
+   step 3. Step 1's AdamW first moments (a tenth of step 1's gradients,
+   from the same params and batch) within MESH_GRAD_REL_L2 of each other,
+   each step's loss and the params at steps 2 and 3 within the CPU
+   test's tolerance of each other; on every rank K5's forward, dq and
+   dk/dv once per layer per step and no other kernel; each mesh step's
+   seconds logged as four processes on one card.
 Every kernel's launch count is set to 0 just before each path of phases
-3b, 4, 4g, 5, 6, 7 and 8 is driven and read just after it.
+3b, 4, 4g, 5, 6, 7, 8 and 9 is driven and read just after it.
 
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure raises, so the run exits non-zero with its
@@ -1360,14 +1388,24 @@ def main() -> int:
         help="phases 1, 2 and 8 only: build the kernels, then run the extraction "
         "pipeline at the 200k chain",
     )
+    parser.add_argument(
+        "--mesh", action="store_true",
+        help="phases 1, 2 and 9 only: build the kernels, then serve and train on a "
+        "mesh of virtual devices on the card",
+    )
     parser.add_argument("--seed", type=int, default=0, help="phase 7's --seed")
     parser.add_argument("--extraction-host", type=Path, default=None,
                         help=argparse.SUPPRESS)  # phase 8's child process
     parser.add_argument("--card", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)  # a rank of phase 9c
+    parser.add_argument("--mesh-job", type=Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.extraction_host is not None:
         # Phase 8's host stages, in the child that phase 8 starts: no card.
         return run_extraction_host(args.extraction_host, args.card)
+    if args.mesh_rank is not None:
+        return run_mesh_rank(args.mesh_job, args.mesh_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -1417,6 +1455,13 @@ def main() -> int:
                 built["store"].close()
             finally:
                 host.stop()
+        log(json.dumps({"kernels": kernels}))
+        log(json.dumps(device_record()))
+        return 0
+
+    if args.mesh:
+        kernels = [{"name": name} for name in MESH_KERNEL_ROWS]
+        run_mesh_phases(device, kernels, card)
         log(json.dumps({"kernels": kernels}))
         log(json.dumps(device_record()))
         return 0
@@ -1874,6 +1919,7 @@ def run_service(device, kernels, card) -> None:
             by_name["bin_topk"]["http_launches"] = http_launches
             by_name["bin_topk"]["mcp_launches"] = mcp_launches
             del service
+        run_mesh_serving(serving, kernels, card)
         log(f"  lexcore native {lexcore}")
 
 
@@ -2911,6 +2957,8 @@ def run_training(device, kernels, card) -> None:
                 row["launches"] = counts[f"flash_attention_bwd_{suffix}"]
                 row["launches_per_step"] = layers
                 row["cross_encoder_pairs_per_s"] = pairs_per_s
+        with Phase("9c. training CLI on a (2, 2) mesh of four processes on the card, and on one device"):
+            run_mesh_training(device, kernels, data_dir, Path(tmp), card)
     for forbidden in ("jax", "lean_explore_tpu"):
         if forbidden in sys.modules:
             raise AssertionError(f"{forbidden} was imported on the training path")
@@ -4259,6 +4307,571 @@ def run_extraction_chain(device, kernels, card, repo: Path, root: Path,
             raise AssertionError(f"{forbidden} was imported on the extraction path")
     return dict(corpus=corpus, extraction=extraction, store=store, seconds=seconds,
                 embeddings=embeddings, embedder=embedder)
+
+
+# ----------------------------------------------------------------------
+# Phase 9: the mesh on the one card
+# ----------------------------------------------------------------------
+
+# 9a/9b: a (data, corpus) = (2, 4) serving mesh of eight virtual devices,
+# all cuda:0, as the JAX tests' host devices are virtual. Real cross-card
+# traffic needs a machine with more cards.
+MESH_SERVE_SHAPE = (2, 4)
+# DP rerank against one device: each device scores its 16 groups as the
+# single-device path scores the same 16 (one group chunk), but the prefix
+# forward runs 16 rows where one device runs 128, and cuBLAS may sum a
+# product's depth in another order for another row count. Each bf16 output
+# then rounds at most one ulp apart (2^-8 relative), the scale of
+# RERANK_FLASH_TOL's rounding (2^-9 per rounding through 28 layers), so
+# the same bound holds.
+RERANK_DP_TOL = RERANK_FLASH_TOL
+# 9c: phase 5's width at 2 of its 28 layers, to fit the time (the whole
+# script ran 1,190 s of its 1,200 at 4 on a slow host).
+MESH_TRAIN_SHAPE, MESH_TRAIN_LAYERS = (2, 2), 2
+MESH_RANK_TIMEOUT_S = 300
+# The CPU tests' tolerance (tests/test_torch_parallel_train.py): a loss
+# within 1e-5 relative plus twice its first-order change, params within
+# 2 sum_t lr U_t + 2^-23 |p|, U_t Adam's largest update of one entry at
+# step t (1, 1.00136, 1.00362 at steps 1-3, rounded up).
+MESH_LOSS_RTOL = 1e-5
+ADAM_U = (1.0, 1.0014, 1.0037)
+# Step 1's gradients, mesh against one device (relative L2 a leaf): both
+# run the same kernels on the same rows and heads, and differ only where
+# f32 sums run in another order (the row-split o/down products summed over
+# model, the gradients over data), a few 2^-24 a value; the CPU test holds
+# that within 1e-5 (GRAD_REL_L2), and 1e-4 leaves ten times that for cuBLAS
+# choosing other kernels at the mesh's half shapes. A missed or doubled
+# reduction moves a gradient by half of it or more.
+MESH_GRAD_REL_L2 = 1e-4
+
+
+class PlainCarries:
+    """Within it, the K1 and K2 wrappers' modules compute the plain twin
+    on the card (their kernels untouched), so a sharded search runs its
+    plain version on the same inputs."""
+
+    def __enter__(self):
+        from lean_explore_tpu_torch.ops import bin_topk as K1
+        from lean_explore_tpu_torch.ops import bin_topk_int8 as K2
+
+        self._real = (K1.bin_topk_carry, K2.bin_topk_int8_carry)
+
+        def k1(q, corpus, n_valid, bins):
+            steal = K1.steal_bits_for(corpus.shape[0], bins)
+            return K1.bin_topk_carry_plain(q, corpus, n_valid, bins, steal)
+
+        def k2(q_codes, q_scales, codes, scales, n_valid, bins):
+            steal = K1.steal_bits_for(codes.shape[0], bins)
+            return K2.bin_topk_int8_carry_plain(
+                q_codes, q_scales, codes, scales, n_valid, bins, steal
+            )
+
+        K1.bin_topk_carry, K2.bin_topk_int8_carry = k1, k2
+        return self
+
+    def __exit__(self, *exc):
+        from lean_explore_tpu_torch.ops import bin_topk as K1
+        from lean_explore_tpu_torch.ops import bin_topk_int8 as K2
+
+        K1.bin_topk_carry, K2.bin_topk_int8_carry = self._real
+        return False
+
+
+def clone_embedder(client, **kw):
+    """An embedder with ``client``'s params, tokenizer and settings."""
+    from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+
+    return EmbeddingClient.from_components(
+        client.params, client.config, client.tokenizer, model_name=client.model_name,
+        max_length=client.max_length, batch_size=client.batch_size,
+        append_eos=client.append_eos, query_prompt=client.query_prompt, **kw,
+    )
+
+
+def sharded_rows(index) -> torch.Tensor:
+    """The sharded index's padded rows in f32 on its first device (int8
+    dequantized): the exact scores of any returned row."""
+    rows = [s.to(torch.float32) for s in index.shards[0]]
+    if index.scales is not None:
+        rows = [r * s[:, None] for r, s in zip(rows, index.scales[0])]
+    return torch.cat(rows)
+
+
+def check_shard_carries(index, q: torch.Tensor, k: int) -> float:
+    """Each (data, corpus) position's carry against its plain twin on its
+    shard, with the position's query slice, local valid rows and bins: K1
+    within ``_check_bin_topk_case``'s tolerance, K2 bit for bit."""
+    from lean_explore_tpu_torch.parallel.sharded import _shard_bins
+
+    n_data, n_corpus = index.mesh.devices.shape
+    per = q.shape[0] // n_data
+    rows = index.shard_rows
+    err = 0.0
+    for (d, c), shard in np.ndenumerate(index.shards):
+        q_d = q[d * per : (d + 1) * per]
+        local_valid = min(max(index.n - c * rows, 0), rows)
+        bins = _shard_bins(rows, per)
+        name = f"shard ({d}, {c})"
+        if index.scales is not None:
+            err = max(err, _check_bin_topk_int8_case(
+                name, q_d.contiguous(), shard, index.scales[d, c], local_valid, k, bins
+            ))
+        else:
+            err = max(err, _check_bin_topk_case(
+                name, q_d.to(shard.dtype).contiguous(), shard, local_valid, k, bins
+            ))
+    return err
+
+
+def check_sharded_merge(index, q: torch.Tensor, k: int, tol: float) -> int:
+    """The sharded top-k through the kernels against the same search on the
+    plain twins (``PlainCarries``): scores within ``tol``; an id may
+    differ only at a near tie (the exact scores of the two rows within
+    ``tol``). Returns the count of ids that differ."""
+    with CountLaunches() as plain_run:
+        with PlainCarries():
+            want_s, want_ids = index.search(q, k)
+    if any(plain_run.counts.values()):
+        raise AssertionError(f"the plain sharded search launched {plain_run.counts}")
+    got_s, got_ids = index.search(q, k)
+    err = float(np.abs(got_s - want_s).max())
+    if not err <= tol:
+        raise AssertionError(f"sharded top-{k}: score error {err} > {tol} against the plain twin")
+    differ = got_ids != want_ids
+    if differ.any():
+        rows = sharded_rows(index)
+        qf = q.to(torch.float32)
+        exact = [
+            torch.einsum("bd,bkd->bk", qf, rows[torch.from_numpy(ids - 1).to(rows.device)])
+            for ids in (got_ids, want_ids)
+        ]
+        gap = float((exact[0] - exact[1]).abs()[torch.from_numpy(differ).to(rows.device)].max())
+        if not gap <= tol:
+            raise AssertionError(
+                f"sharded top-{k}: {int(differ.sum())} ids differ with a score gap {gap} > {tol}"
+            )
+    return int(differ.sum())
+
+
+def sharded_recall_at_10(index, q: torch.Tensor) -> float:
+    """Recall@10 of the sharded kernel path against the exact scan of the
+    same rows."""
+    rows = sharded_rows(index)[: index.n]
+    want = torch.topk(q.to(torch.float32) @ rows.T, 10, dim=1).indices.cpu().numpy() + 1
+    _, got = index.search(q, 10)
+    recall = float(np.mean([len(set(g) & set(w)) / 10 for g, w in zip(got, want)]))
+    if not recall >= 0.97:
+        raise AssertionError(f"sharded dense recall@10 {recall} below 0.97")
+    return recall
+
+
+def drive_mesh_service(service, store, label: str, kernel: str, per_batch: int,
+                       reps: int, card: str):
+    """One warm batch, then ``reps`` timed batches with every launch count
+    set to 0 before them: ``kernel`` exactly ``per_batch`` times a batch and
+    no other kernel. Returns (counts, the first timed batch's responses,
+    ms a batch)."""
+    from lean_explore_tpu_torch.util.profiling import StageTimings
+
+    t = time.perf_counter()
+    check_results(asyncio.run(service.search_batch(queries_for(999))), store)
+    log(f"  {label}: warm batch of {BATCH}: {time.perf_counter() - t:.2f} s")
+    totals: dict[str, float] = {}
+    batch_ms = []
+    with CountLaunches() as launched:
+        for rep in range(reps):
+            timings = StageTimings()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = asyncio.run(service.search_batch(queries_for(rep), timings=timings))
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            check_results(out, store)
+            first = out if rep == 0 else first
+            for stage, ms in timings.as_dict().items():
+                totals[stage] = totals.get(stage, 0.0) + ms
+    counts = launched.counts
+    if counts[kernel] != per_batch * reps or any(c for n, c in counts.items() if n != kernel):
+        raise AssertionError(f"{label}: launches {counts}, want {kernel} {per_batch} a batch")
+    stage_ms = {k: round(v / reps, 2) for k, v in totals.items()}
+    log(
+        f"  {label}: ms per batch of {BATCH} {[round(x, 1) for x in batch_ms]}; stage ms "
+        f"{stage_ms}; launches {counts}; {len(service.engine.embedding_client.mesh.devices)} "
+        f"virtual devices on one card (not a multi-card figure); {card}"
+    )
+    return counts, first, batch_ms
+
+
+def compare_with_single_device(single_out, mesh_out, single, mesh_service, queries,
+                               card: str) -> None:
+    """Logs the mesh's final ids against the single-device service's on the
+    same queries: equal top-10s and, for each query that differs, whether
+    the dense candidates (the ordered top-1000 of each path's own query
+    embeddings) changed or only the rerank and fusion."""
+    k = 1000
+    emb_single = single.engine.embedding_client.embed_device(queries, True)
+    emb_mesh = mesh_service.engine.embedding_client.embed_device(queries, True)
+    _, dense_single = single.engine._artifacts.dense.search(emb_single, k)
+    _, dense_mesh = mesh_service.engine._artifacts.dense.search(emb_mesh, k)
+    equal, dense_changed, rerank_changed = 0, 0, 0
+    for i, (a, b) in enumerate(zip(single_out, mesh_out)):
+        if [r.id for r in a.results[:10]] == [r.id for r in b.results[:10]]:
+            equal += 1
+        elif list(dense_single[i]) != list(dense_mesh[i]):
+            dense_changed += 1
+        else:
+            rerank_changed += 1
+    emb_diff = float((emb_single - emb_mesh.to(emb_single.device)).abs().max())
+    log(
+        f"  mesh vs single-device service on {len(queries)} queries: {equal} equal top-10s; "
+        f"of the others, {dense_changed} with other dense candidates, {rerank_changed} "
+        f"with the same dense candidates (rerank and fusion); query embeddings' largest "
+        f"difference {emb_diff:.3g} (data-parallel embed, 16 rows a forward); {card}"
+    )
+
+
+def run_mesh_serving(serving, kernels, card) -> None:
+    """Phases 9a and 9b on the phase-4 set-up: the phase-4 corpus sharded
+    over a (2, 4) mesh of cuda:0 eight times, the phase-4 clients on the
+    flat data mesh of those 8, through ``Service.search_batch``."""
+    from lean_explore_tpu_torch.parallel import ShardedDenseIndex, make_mesh, rerank_data_mesh
+    from lean_explore_tpu_torch.ops.bin_topk import score_tolerance, steal_bits_for
+    from lean_explore_tpu_torch.parallel.sharded import _shard_bins
+
+    by_name = {k["name"]: k for k in kernels}
+    device = serving.device
+    mesh = make_mesh(MESH_SERVE_SHAPE, devices=[device] * 8)
+    data_mesh = rerank_data_mesh(mesh)
+    embedder = clone_embedder(serving.embedder, mesh=data_mesh)
+    reranker = clone_reranker(serving.reranker, serving.reranker.params, mesh=data_mesh)
+    host = seeded_corpus(device, N_ROWS, serving.embedder.dim).cpu().numpy()
+    ids = np.arange(1, N_ROWS + 1)
+    with Phase("9a. Service.search_batch on a (2, 4) mesh of cuda:0, bf16 corpus"):
+        t = time.perf_counter()
+        index = ShardedDenseIndex(host, ids, mesh, dtype="bfloat16")
+        torch.cuda.synchronize()
+        if index.method != "fused" or index.shards[0, 0].shape[0] != 75_264:
+            raise AssertionError(f"sharded index: {index.method}, {index.shards[0, 0].shape}")
+        log(
+            f"  sharded index: {N_ROWS} rows padded to {index.shard_rows * 4}, shards of "
+            f"{index.shard_rows} x {index.dim} bf16 (one copy each on cuda:0), "
+            f"{time.perf_counter() - t:.1f} s"
+        )
+        service = dataclasses.replace(serving, embedder=embedder, reranker=reranker).service(index)
+        groups = capture_groups(reranker)
+        counts, mesh_out, batch_ms = drive_mesh_service(
+            service, serving.store, "mesh bf16 corpus", "bin_topk", 8, 2, card
+        )
+        by_name["bin_topk"]["mesh_launches"] = counts["bin_topk"]
+        by_name["bin_topk"]["mesh_launches_per_batch"] = 8
+        by_name["bin_topk"]["mesh_batch_ms"] = batch_ms
+        q = embedder.embed_device(queries_for(0), True)
+        q = q / q.norm(dim=1, keepdim=True)
+        carry_err = check_shard_carries(index, q, BIN_K)
+        steal = steal_bits_for(index.shard_rows, _shard_bins(index.shard_rows, BATCH // 2))
+        tol = 2.0 * 2.0 ** (steal - 22) + score_tolerance(torch.bfloat16, index.dim)
+        differ = check_sharded_merge(index, q, BIN_K, tol)
+        recall = sharded_recall_at_10(index, q)
+        log(
+            f"  8 shard carries against their plain twins: max score error {carry_err:.3g}; "
+            f"merged top-{BIN_K} against the plain sharded twin within {tol:.3g}, "
+            f"{differ} ids differing at near ties; dense recall@10 against the exact scan "
+            f"{recall:.4f}"
+        )
+        queries, docs = groups[-1]
+        drift = score_diff(
+            reranker.rerank_grouped_sync(queries, docs),
+            serving.reranker.rerank_grouped_sync(queries, docs),
+        )
+        if not drift.max() <= RERANK_DP_TOL:
+            raise AssertionError(f"DP rerank P(true) differs from one device by {drift.max()}")
+        log(
+            f"  DP rerank over 8 virtual devices against one device on {len(drift)} pairs "
+            f"of the last batch: P(true) max difference {drift.max():.3g} (tol "
+            f"{RERANK_DP_TOL}), mean {drift.mean():.3g}"
+        )
+        single = serving.service()
+        single_out = asyncio.run(single.search_batch(queries_for(0)))
+        compare_with_single_device(single_out, mesh_out, single, service, queries_for(0), card)
+        by_name["bin_topk"]["mesh_max_abs_err"] = carry_err
+        del index, service, single
+        torch.cuda.empty_cache()
+
+    with Phase("9b. Service.search_batch on the (2, 4) mesh, int8 corpus"):
+        t = time.perf_counter()
+        index = ShardedDenseIndex(host, ids, mesh, dtype="int8")
+        log(f"  int8 sharded index ({index.method}) in {time.perf_counter() - t:.1f} s")
+        del host
+        service = dataclasses.replace(serving, embedder=embedder, reranker=reranker).service(index)
+        counts, _, batch_ms = drive_mesh_service(
+            service, serving.store, "mesh int8 corpus", "bin_topk_int8", 8, 1, card
+        )
+        by_name["bin_topk_int8"]["mesh_launches"] = counts["bin_topk_int8"]
+        by_name["bin_topk_int8"]["mesh_launches_per_batch"] = 8
+        by_name["bin_topk_int8"]["mesh_batch_ms"] = batch_ms
+        q = embedder.embed_device(queries_for(0), True)
+        q = q / q.norm(dim=1, keepdim=True)
+        check_shard_carries(index, q, BIN_K)
+        differ = check_sharded_merge(index, q, BIN_K, 0.0)
+        log(f"  8 int8 shard carries equal their plain twins bit for bit; merged top-"
+            f"{BIN_K} equal to the plain sharded twin's ({differ} ids differ)")
+        del index, service
+        torch.cuda.empty_cache()
+
+
+MESH_KERNEL_ROWS = (
+    "bin_topk", "bin_topk_int8", "flash_attention_f32", "flash_attention_bwd_dq_f32",
+    "flash_attention_bwd_dkv_f32",
+)
+
+
+def run_mesh_phases(device, kernels, card) -> None:
+    """``--mesh``: phase 4's serving set-up and phase 5's training data
+    built alone, then phases 9a-9c on them."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        run_mesh_serving(build_service(device, tmp), kernels, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        data_dir, _ = write_training_data(tmp)
+        with Phase("9c. training CLI on a (2, 2) mesh of four processes on the card, and on one device"):
+            run_mesh_training(device, kernels, data_dir, Path(tmp), card)
+
+
+def export_random_mesh_model(device, data_dir, out_dir) -> None:
+    """Phase 5's random 0.6B-width checkpoint at MESH_TRAIN_LAYERS layers."""
+    from lean_explore_tpu_torch.models import qwen3
+    from lean_explore_tpu_torch.train.export import export_hf_checkpoint
+
+    config = dataclasses.replace(qwen06b_config(), num_hidden_layers=MESH_TRAIN_LAYERS)
+    params = qwen3.init_params(config, torch.Generator(device=device).manual_seed(3), device=device)
+    export_hf_checkpoint(params, config, out_dir, tokenizer_dir=data_dir)
+    del params
+    torch.cuda.empty_cache()
+
+
+def mesh_cli_argv(model_dir, data_dir, ckpt, steps: int, mesh: str) -> list[str]:
+    """The training CLI at its defaults (batch 32, queries 64, documents
+    256, lr 1e-5), a checkpoint every step."""
+    return [
+        "--model-dir", str(model_dir), "--data-dir", str(data_dir), "--steps", str(steps),
+        "--checkpoint-dir", str(ckpt), "--checkpoint-every", "1", "--log-every", "1",
+        "--mesh", mesh,
+    ]
+
+
+def run_mesh_rank(job_path: Path, rank: int) -> int:
+    """One rank of 9c (``chip_smoke.py --mesh-rank R --mesh-job JOB``): the
+    training CLI with flash on, once for each of JOB's ``argvs`` in turn
+    (the second resumes the first's checkpoint), each run's launch counts
+    and records written to JOB's ``out`` with the rank appended."""
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    job = json.loads(Path(job_path).read_text())
+    for name in CPU_REQUEST_VARS:
+        os.environ.pop(name, None)
+    os.environ[FLASH_ENV] = "1"
+    import torch.distributed as dist
+
+    from lean_explore_tpu_torch.parallel.mesh import init_distributed
+    from lean_explore_tpu_torch.train.__main__ import main as train_main
+
+    mesh = init_distributed(
+        tuple(job["shape"]), init_method=job["init"], world_size=job["world"], rank=rank
+    )
+    runs = []
+    for argv in job["argvs"]:
+        with CountLaunches() as launched:
+            records = train_main(argv)
+            torch.cuda.synchronize()
+        runs.append({"records": records, "counts": launched.counts})
+    Path(f"{job['out']}.{rank}").write_text(json.dumps({
+        "runs": runs, "backend": dist.get_backend(), "device": str(mesh.device),
+        "coords": mesh.coords,
+    }))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_cli(tmp: Path, name: str, argvs: list[list[str]]) -> list[dict]:
+    """The CLI in one process per position of MESH_TRAIN_SHAPE on the card,
+    each process running ``argvs`` in turn; returns each rank's record. A
+    rank that fails or hangs fails the phase with its log's tail, and
+    every rank is stopped."""
+    world = MESH_TRAIN_SHAPE[0] * MESH_TRAIN_SHAPE[1]
+    run_dir = tmp / name
+    run_dir.mkdir()
+    job = run_dir / "job.json"
+    job.write_text(json.dumps({
+        "shape": MESH_TRAIN_SHAPE, "world": world, "argvs": argvs,
+        "init": f"file://{run_dir / 'rendezvous'}", "out": str(run_dir / "rank"),
+    }))
+    # Two host threads a rank: four ranks with a thread a core each
+    # oversubscribe the host, and gloo reduces on it.
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    procs = []
+    try:
+        for rank in range(world):
+            with open(run_dir / f"rank{rank}.log", "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(rank),
+                     "--mesh-job", str(job)],
+                    stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent,
+                    env=env,
+                ))
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+        for rank, proc in enumerate(procs):
+            try:
+                code = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                code = "timeout"
+            if code != 0:
+                tail = (run_dir / f"rank{rank}.log").read_text()[-3000:]
+                raise AssertionError(f"9c {name}: rank {rank} ended with {code}: {tail}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [json.loads(Path(f"{run_dir / 'rank'}.{r}").read_text()) for r in range(world)]
+
+
+def mesh_loss_grads(device, ckpt: Path, config, batch):
+    """The one-device InfoNCE gradients at a checkpoint's params on a batch."""
+    from lean_explore_tpu_torch.train.contrastive import infonce_loss, param_leaves, trainable
+
+    saved = torch.load(ckpt, map_location=device, weights_only=True)["params"]
+    params = trainable(saved)
+    loss, _ = infonce_loss(params, config, batch)
+    loss.backward()
+    return [p.grad for p in param_leaves(params)], params
+
+
+def run_mesh_training(device, kernels, data_dir: Path, tmp: Path, card: str) -> None:
+    """Phase 9c: the contrastive CLI on a (2, 2) mesh of four processes on
+    the card (two steps, a checkpoint each, then resumed to step 3 in the
+    same processes), and the
+    same on one device: to step 2 from the same init, and resumed from the
+    mesh's step-2 checkpoint to step 3."""
+    from lean_explore_tpu_torch.models.tokenizer import load_tokenizer
+    from lean_explore_tpu_torch.models.store import DeclarationStore
+    from lean_explore_tpu_torch.train import ContrastiveDataLoader, pairs_from_store
+    from lean_explore_tpu_torch.train.__main__ import main as train_main
+    from lean_explore_tpu_torch.train.contrastive import param_leaves
+
+    by_name = {k["name"]: k for k in kernels}
+    model_dir = tmp / "mesh_model"
+    export_random_mesh_model(device, data_dir, model_dir)
+
+    mesh_ckpt, one_ckpt, resumed_ckpt = tmp / "mesh_ckpt", tmp / "one_ckpt", tmp / "resumed_ckpt"
+    shape = ",".join(map(str, MESH_TRAIN_SHAPE))
+    ranks = run_mesh_cli(tmp, "mesh", [
+        mesh_cli_argv(model_dir, data_dir, mesh_ckpt, 2, shape),
+        mesh_cli_argv(model_dir, data_dir, mesh_ckpt, 3, shape),  # resumes at step 2
+    ])
+    for rank, record in enumerate(ranks):
+        if record["backend"] != "gloo":
+            raise AssertionError(f"rank {rank} ran on {record['backend']}, want gloo")
+        for run, steps in zip(record["runs"], (2, 1)):
+            _expect_training_launches(f"9c rank {rank}", run["counts"], steps, MESH_TRAIN_LAYERS)
+    mesh_records = [r for run in ranks[0]["runs"] for r in run["records"]]
+    for record in ranks[1:]:
+        losses = [r["loss"] for run in record["runs"] for r in run["records"]]
+        if losses != [r["loss"] for r in mesh_records]:
+            raise AssertionError(f"ranks disagree on the losses: {losses}")
+
+    saved = {name: os.environ.pop(name) for name in CPU_REQUEST_VARS if name in os.environ}
+    os.environ[FLASH_ENV] = "1"
+    try:
+        one = train_main(mesh_cli_argv(model_dir, data_dir, one_ckpt, 2, "1,1"))
+        resumed_ckpt.mkdir()
+        os.link(mesh_ckpt / "step_00000002", resumed_ckpt / "step_00000002")
+        one += train_main(mesh_cli_argv(model_dir, data_dir, resumed_ckpt, 3, "1,1"))
+    finally:
+        os.environ.pop(FLASH_ENV, None)
+        os.environ.update(saved)
+    if [r["step"] for r in mesh_records] != [1, 2, 3] or [r["step"] for r in one] != [1, 2, 3]:
+        raise AssertionError(f"9c steps {mesh_records} / {one}")
+
+    # Step 1 runs from the same params on the same batch on both sides, so
+    # its first moments (0.1 x the gradients) hold the mesh's reductions.
+    moments = [
+        torch.load(c / "step_00000001", map_location=device, weights_only=True)
+        ["opt_state"]["state"]
+        for c in (mesh_ckpt, one_ckpt)
+    ]
+    grad_err = max(
+        float((moments[0][i]["exp_avg"] - want["exp_avg"]).norm()
+              / want["exp_avg"].norm().clamp_min(1e-30))
+        for i, want in moments[1].items()
+    )
+    del moments
+    if not grad_err <= MESH_GRAD_REL_L2:
+        raise AssertionError(
+            f"9c step-1 first moments: relative L2 {grad_err} > {MESH_GRAD_REL_L2}"
+        )
+
+    # Step 1 and the resumed step 3 start from the same params on both
+    # sides; step 2 from params one step apart, whose first-order effect on
+    # the loss is the one-device gradient at its params times the gap.
+    config = dataclasses.replace(qwen06b_config(), num_hidden_layers=MESH_TRAIN_LAYERS)
+    pairs = pairs_from_store(DeclarationStore(str(data_dir / "declarations.db")))
+    loader = iter(ContrastiveDataLoader(load_tokenizer(model_dir), pairs, seed=0))
+    next(loader)
+    batch2 = next(loader).to(device)
+    os.environ[FLASH_ENV] = "1"
+    try:
+        grads, one_params = mesh_loss_grads(device, one_ckpt / "step_00000001", config, batch2)
+    finally:
+        os.environ.pop(FLASH_ENV, None)
+    mesh_params = torch.load(mesh_ckpt / "step_00000001", map_location=device,
+                             weights_only=True)["params"]
+    first_order = sum(
+        float((g * (m.detach() - p.detach())).abs().sum())
+        for g, m, p in zip(grads, param_leaves(mesh_params), param_leaves(one_params))
+    )
+    del grads, one_params, mesh_params
+    tols = [MESH_LOSS_RTOL * abs(r["loss"]) for r in one]
+    tols[1] += 2 * first_order
+    diffs = [abs(m["loss"] - o["loss"]) for m, o in zip(mesh_records, one)]
+    if not all(d <= t for d, t in zip(diffs, tols)):
+        raise AssertionError(f"9c losses: mesh {mesh_records}, one device {one}, tol {tols}")
+    lr = 1e-5
+    worst = {}
+    for step, ckpts, bound in (
+        (2, (mesh_ckpt, one_ckpt), 2 * lr * (ADAM_U[0] + ADAM_U[1])),
+        (3, (mesh_ckpt, resumed_ckpt), 2 * lr * ADAM_U[2]),
+    ):
+        a, b = ([leaf.detach() for leaf in param_leaves(torch.load(
+            c / f"step_{step:08d}", map_location=device, weights_only=True)["params"])]
+            for c in ckpts)
+        excess = 0.0
+        for x, y in zip(a, b):
+            slack = bound + 2.0**-23 * y.abs()
+            excess = max(excess, float(((x - y).abs() - slack).max()))
+        if excess > 0:
+            raise AssertionError(f"9c step-{step} params differ beyond the bound by {excess}")
+        worst[step] = float(max((x - y).abs().max() for x, y in zip(a, b)))
+        del a, b
+    torch.cuda.empty_cache()
+    mesh_s = [r["seconds"] for r in mesh_records]
+    log(
+        f"  9c losses mesh {[round(r['loss'], 6) for r in mesh_records]} vs one device "
+        f"{[round(r['loss'], 6) for r in one]} (differences {[f'{d:.3g}' for d in diffs]}, "
+        f"tol {[f'{t:.3g}' for t in tols]}); step 1's first moments' worst relative L2 "
+        f"{grad_err:.3g} (tol {MESH_GRAD_REL_L2:.3g}); params' largest difference at step 2 "
+        f"{worst[2]:.3g}, after the resumed step 3 {worst[3]:.3g}"
+    )
+    log(
+        f"  9c: (2, 2) mesh step seconds {[round(s, 3) for s in mesh_s]} (gloo, four "
+        f"processes on one card: not a multi-card figure) against one device "
+        f"{[round(r['seconds'], 3) for r in one]}; each rank's launches per step "
+        f"{MESH_TRAIN_LAYERS} forward, dq and dk/dv; {card}"
+    )
+    for name in ("flash_attention_f32", "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32"):
+        by_name[name]["mesh_launches_per_rank"] = [
+            sum(run["counts"][name.removesuffix("_f32")] for run in record["runs"])
+            for record in ranks
+        ]
+        by_name[name]["mesh_launches_per_rank_step"] = MESH_TRAIN_LAYERS
 
 
 if __name__ == "__main__":

@@ -132,8 +132,13 @@ class Config:
     """Hold every declaration's metadata in memory (high-QPS serving)."""
 
     MESH_SHAPE: str = os.getenv("LEAN_EXPLORE_MESH_SHAPE", "")
-    """Optional 'data,corpus' mesh shape. This package runs on one device
-    and raises where more than one is configured (ROADMAP A7)."""
+    """Optional 'data,corpus' mesh shape (e.g. '2,4'): the dense index is
+    sharded over it (``parallel.ShardedDenseIndex``), both model clients
+    split their batches over all of its devices, and so does the extract
+    stage's embedder. A shape larger than the devices raises."""
+
+    TOPK_CHUNK: int = int(os.getenv("LEAN_EXPLORE_TOPK_CHUNK", "8192"))
+    """Corpus rows scored per chunk in the sharded index's exact chunked scan."""
 
     R2_ASSETS_BASE_URL: str = os.getenv(
         "LEAN_EXPLORE_R2_BASE_URL",

@@ -1,4 +1,4 @@
-"""Corpus embedding stage on one device, with the byte-level cache
+"""Corpus embedding stage, with the byte-level cache
 (lean_explore_tpu/extract/embeddings.py):
 
 - a cross-database cache keyed by exact informalization text, so unchanged
@@ -6,9 +6,8 @@
 - incremental: only rows with an informalization and no embedding;
 - batched store commits, so a crash resumes where it left off.
 
-The JAX stage spreads the batches over every chip when
-LEAN_EXPLORE_MESH_SHAPE names more than one device; here that raises
-(ROADMAP A7).
+When LEAN_EXPLORE_MESH_SHAPE is set the default client splits each batch
+over that many devices (``_embed_mesh``), as the JAX stage does.
 """
 
 import logging
@@ -27,13 +26,21 @@ logger = logging.getLogger(__name__)
 DEFAULT_BATCH_SIZE = 250
 
 
-def _require_one_device() -> None:
+def _embed_mesh(device: str | torch.device | None = None):
+    """The corpus embedder's all-device data mesh when multi-device serving
+    is configured (LEAN_EXPLORE_MESH_SHAPE), else None: every device of
+    ``device``'s kind that the shape names goes on the ``data`` axis (the
+    trunk is replicated; splitting the batches is the gain). A shape that
+    names more devices than there are raises."""
     shape = Config.mesh_shape()
-    if shape is not None and shape[0] * shape[1] != 1:
-        raise NotImplementedError(
-            f"LEAN_EXPLORE_MESH_SHAPE={Config.MESH_SHAPE}: the port embeds on "
-            "one device; the multi-device embed mesh is not ported (ROADMAP A7)"
-        )
+    if shape is None:
+        return None
+    from lean_explore_tpu_torch.parallel.mesh import SERVE_AXES, make_mesh
+    from lean_explore_tpu_torch.util.platform import mesh_devices
+
+    return make_mesh(
+        (shape[0] * shape[1], 1), axis_names=SERVE_AXES, devices=mesh_devices(device)
+    )
 
 
 def load_embedding_cache(
@@ -92,13 +99,12 @@ def generate_embeddings(
         use_cache: Reuse embeddings from prior databases by text equality.
         limit: Optional cap (smoke tests).
         device: Device of the default client (default CUDA; "cpu" asks for
-            the CPU).
+            the CPU); with LEAN_EXPLORE_MESH_SHAPE set, its batches split
+            over that many devices of this kind (``_embed_mesh``).
 
     Returns:
         Number of embeddings written.
     """
-    if client is None:
-        _require_one_device()
     todo = list(store.iter_missing_embedding())
     if limit:
         todo = todo[:limit]
@@ -134,6 +140,7 @@ def generate_embeddings(
             max_length=Config.EMBEDDING_MAX_LENGTH,
             batch_size=batch_size,
             device=device,
+            mesh=_embed_mesh(device),
         )
 
     written = len(cached_rows)

@@ -24,11 +24,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from lean_explore_tpu_torch.config import REQUIRED_INDEX_FILES
+from lean_explore_tpu_torch.config import REQUIRED_INDEX_FILES, Config
 from lean_explore_tpu_torch.index import dense as dense_mod
 from lean_explore_tpu_torch.index.bm25 import Bm25Index, Bm25Params
 from lean_explore_tpu_torch.index.dense import DenseIndex
 from lean_explore_tpu_torch.models.store import DeclarationStore
+from lean_explore_tpu_torch.parallel.mesh import serve_mesh_from_config
+from lean_explore_tpu_torch.parallel.sharded import ShardedDenseIndex
 from lean_explore_tpu_torch.search.tokenization import tokenize_raw, tokenize_spaced
 
 logger = logging.getLogger(__name__)
@@ -45,7 +47,7 @@ MANIFEST_FILE = "manifest.json"
 class IndexArtifacts:
     """In-memory handle to a loaded artifact set."""
 
-    dense: DenseIndex
+    dense: "DenseIndex | ShardedDenseIndex"
     bm25_spaced: Bm25Index
     bm25_raw: Bm25Index
     bm25_ids: np.ndarray
@@ -131,14 +133,34 @@ def build_index_artifacts(
     return manifest
 
 
+def _load_dense(directory: Path, dense_dtype: str, device, mesh):
+    """A DenseIndex on ``device``, or a ShardedDenseIndex over ``mesh``:
+    a ``parallel.Mesh``, None to consult ``Config.MESH_SHAPE`` (env
+    LEAN_EXPLORE_MESH_SHAPE, over the devices of ``device``'s kind), or
+    False for one device whatever the configuration."""
+    if mesh is None:
+        mesh = serve_mesh_from_config(device)
+    if mesh is None or mesh is False:
+        return DenseIndex.load(directory, dtype=dense_dtype, device=device)
+    emb_path, ids_path = dense_mod.require_dense_artifacts(directory)
+    logger.info("Loading dense index sharded over mesh %s", mesh.shape)
+    return ShardedDenseIndex(
+        np.load(emb_path), np.load(ids_path), mesh,
+        dtype=dense_dtype, chunk=Config.TOPK_CHUNK,
+    )
+
+
 def load_index_artifacts(
     directory: str | Path,
     *,
     dense_dtype: str = "float32",
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> IndexArtifacts:
     """Load an artifact set, the dense matrix onto ``device`` (default
-    CUDA); raises FileNotFoundError on incomplete dirs."""
+    CUDA) or sharded over ``mesh`` (``_load_dense``: None consults
+    LEAN_EXPLORE_MESH_SHAPE, False forces one device); raises
+    FileNotFoundError on incomplete dirs."""
     directory = Path(directory)
     manifest_path = directory / MANIFEST_FILE
     if not manifest_path.exists():
@@ -167,7 +189,7 @@ def load_index_artifacts(
             f"{', '.join(missing)})."
         )
     return IndexArtifacts(
-        dense=DenseIndex.load(directory, dtype=dense_dtype, device=device),
+        dense=_load_dense(directory, dense_dtype, device, mesh),
         bm25_spaced=Bm25Index.load(directory / BM25_SPACED_FILE),
         bm25_raw=Bm25Index.load(directory / BM25_RAW_FILE),
         bm25_ids=np.load(directory / BM25_IDS_FILE),

@@ -408,21 +408,33 @@ def _layer_params(params: dict, i: int) -> dict:
     }
 
 
-def _layer_body(x, p, *, lead, nq, nkv, dh, eps, rope, attend):
+def _layer_body(x, p, *, lead, nq, nkv, dh, eps, rope, attend, tp=None):
     """One transformer layer; returns (new_x, (k_rotated, v)). The full
     forward, the prefix-KV builder and the suffix scorer share it, as in the
     JAX trunk, and every projection goes through ``_proj``, so the fused
-    and the int8 layouts serve all three."""
+    and the int8 layouts serve all three.
+
+    With ``tp`` (``parallel.collectives.TensorParallel``) the layer holds
+    this rank's heads and MLP columns: the normed activation enters the
+    column-split projections through ``tp.enter`` and the row-split o/down
+    products are summed over the ranks by ``tp.reduce``."""
     h = _rms_norm(x, p["input_norm"], eps)
+    if tp is not None:
+        h = tp.enter(h)
     q, k, v = _qkv(h, p, lead, nq, nkv, dh)
     q = rope(_rms_norm(q, p["q_norm"], eps))
     k = rope(_rms_norm(k, p["k_norm"], eps))
-    x = x + _proj(attend(q, k, v), p["o_proj"])
+    out = _proj(attend(q, k, v), p["o_proj"])
+    x = x + (out if tp is None else tp.reduce(out))
     h = _rms_norm(x, p["post_norm"], eps)
+    if tp is not None:
+        return x + tp.reduce(_mlp(tp.enter(h), p)), (k, v)
     return x + _mlp(h, p), (k, v)
 
 
-def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool, flash=False):
+def _trunk(
+    params, config, input_ids, attention_mask, *, keep_kv: bool, flash=False, tp=None
+):
     batch, seq = input_ids.shape
     device = input_ids.device
     x = params["embed"][input_ids.long()]
@@ -439,9 +451,10 @@ def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool, flash=Fa
             return _attention(q, k, v, bias)
     c = cos[None, :, None, :].to(x.dtype)
     s = sin[None, :, None, :].to(x.dtype)
+    ranks = 1 if tp is None else tp.size
     nq, nkv, dh = (
-        config.num_attention_heads,
-        config.num_key_value_heads,
+        config.num_attention_heads // ranks,
+        config.num_key_value_heads // ranks,
         config.head_dim,
     )
     ks, vs = [], []
@@ -450,7 +463,7 @@ def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool, flash=Fa
             x, _layer_params(params, i), lead=(batch, seq), nq=nq, nkv=nkv,
             dh=dh, eps=config.rms_norm_eps,
             rope=lambda t: t * c + _rotate_half(t) * s,
-            attend=attend,
+            attend=attend, tp=tp,
         )
         if keep_kv:
             ks.append(k)
@@ -459,19 +472,22 @@ def _trunk(params, config, input_ids, attention_mask, *, keep_kv: bool, flash=Fa
 
 
 def forward_hidden(
-    params, config, input_ids, attention_mask, *, flash: bool | None = None
+    params, config, input_ids, attention_mask, *, flash: bool | None = None, tp=None
 ) -> torch.Tensor:
     """Trunk forward: [B, T] ids + 0/1 mask -> final-norm hidden [B, T, H].
 
     flash=None defers to ``_use_flash`` (LEAN_EXPLORE_FLASH_ATTENTION, off
     by default); flash=True takes ``ops.flash_attention`` whatever the
     device (its plain twin on the CPU). The variable is read on every call;
-    the JAX trunk reads it at trace time, once per compiled shape.
+    the JAX trunk reads it at trace time, once per compiled shape. ``tp``
+    (``parallel.collectives.TensorParallel``) runs this rank's shard of
+    tensor-parallel params (``train.contrastive.shard_params``): its
+    1/size of the heads and MLP columns, with the full hidden state.
     """
     if flash is None:
         flash = _use_flash(int(input_ids.shape[1]), input_ids.device)
     x, _, _ = _trunk(
-        params, config, input_ids, attention_mask, keep_kv=False, flash=flash
+        params, config, input_ids, attention_mask, keep_kv=False, flash=flash, tp=tp
     )
     return _rms_norm(x, params["final_norm"], config.rms_norm_eps)
 
@@ -489,9 +505,9 @@ def _pool_last(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tens
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), last]
 
 
-def embed_pool(params, config, input_ids, attention_mask) -> torch.Tensor:
+def embed_pool(params, config, input_ids, attention_mask, *, tp=None) -> torch.Tensor:
     """Last-valid-token hidden state, L2-normalized, f32 [B, H]."""
-    hidden = forward_hidden(params, config, input_ids, attention_mask)
+    hidden = forward_hidden(params, config, input_ids, attention_mask, tp=tp)
     pooled = _pool_last(hidden, attention_mask).to(torch.float32)
     return pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-12)
 

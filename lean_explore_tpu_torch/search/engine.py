@@ -73,7 +73,10 @@ class SearchEngine:
                 fusion stage stops paying sqlite hydration + dependency-JSON
                 parsing per batch.
             device: Device of the dense index and the default clients
-                (default CUDA; pass "cpu" to run on the CPU).
+                (default CUDA; pass "cpu" to run on the CPU). With
+                LEAN_EXPLORE_MESH_SHAPE set, the index is sharded and the
+                clients are data-parallel over that many devices of this
+                kind.
         """
         if data_dir is None:
             data_dir = (
@@ -152,8 +155,20 @@ class SearchEngine:
                 self._embedding_model_name,
                 max_length=Config.EMBEDDING_MAX_LENGTH,
                 device=self.device,
+                mesh=self._client_data_mesh(),
             )
         return self._embedding_client
+
+    def _client_data_mesh(self):
+        """A flat ``data`` mesh over the serving mesh's devices when
+        LEAN_EXPLORE_MESH_SHAPE is set (encode batches and rerank query
+        groups are independent rows, so both clients split them over every
+        device), else None."""
+        from lean_explore_tpu_torch.parallel.mesh import serve_mesh_from_config
+        from lean_explore_tpu_torch.parallel.rerank import rerank_data_mesh
+
+        serve_mesh = serve_mesh_from_config(self.device)
+        return None if serve_mesh is None else rerank_data_mesh(serve_mesh)
 
     @property
     def reranker_client(self):
@@ -164,6 +179,7 @@ class SearchEngine:
                 self._reranker_model_name,
                 max_length=Config.RERANKER_MAX_LENGTH,
                 device=self.device,
+                mesh=self._client_data_mesh(),
             )
         return self._reranker_client
 

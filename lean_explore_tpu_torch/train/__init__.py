@@ -1,6 +1,6 @@
-"""Training subsystem on one device: contrastive fine-tuning of the
-embedder and cross-encoder fine-tuning of the reranker (the JAX package's
-``lean_explore_tpu.train`` without its mesh functions)."""
+"""Training subsystem: contrastive fine-tuning of the embedder and
+cross-encoder fine-tuning of the reranker, on one device or a (data, model)
+mesh of processes (the JAX package's ``lean_explore_tpu.train``)."""
 
 from lean_explore_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -9,10 +9,13 @@ from lean_explore_tpu_torch.train.checkpoint import (
 )
 from lean_explore_tpu_torch.train.contrastive import (
     ContrastiveBatch,
+    commit_to_mesh,
     infonce_loss,
     init_train_state,
     make_optimizer,
     make_train_step,
+    param_partition_specs,
+    shard_params,
 )
 from lean_explore_tpu_torch.train.cross_encoder import (
     CrossEncoderBatch,
@@ -27,6 +30,7 @@ __all__ = [
     "ContrastiveDataLoader",
     "CrossEncoderBatch",
     "CrossEncoderDataLoader",
+    "commit_to_mesh",
     "cross_encoder_loss",
     "infonce_loss",
     "init_train_state",
@@ -35,6 +39,8 @@ __all__ = [
     "make_optimizer",
     "make_train_step",
     "pairs_from_store",
+    "param_partition_specs",
     "restore_checkpoint",
     "save_checkpoint",
+    "shard_params",
 ]

@@ -1,10 +1,31 @@
-"""Contrastive (InfoNCE) fine-tuning of the Qwen3 embedder on one device,
-the counterpart of lean_explore_tpu/train/contrastive.py.
+"""Contrastive (InfoNCE) fine-tuning of the Qwen3 embedder on one device
+or a (data, model) mesh of processes, the counterpart of
+lean_explore_tpu/train/contrastive.py.
 
 In-batch negatives: query i's positive is document i, every other document
-in the batch is a negative, except documents with the same text as i's
-(``doc_dup_mask``). The mesh (data and model axes, ``param_partition_specs``,
-``shard_params``, ``commit_to_mesh``) is not ported: one device only.
+in the global batch is a negative, except documents with the same text as
+i's (``doc_dup_mask``).
+
+On a mesh (``parallel.mesh.init_distributed``, one process per position)
+the step computes what JAX's GSPMD step computes, spelled out:
+
+- ``model`` (tensor parallelism, ``param_partition_specs``): each rank
+  holds whole heads and MLP columns, q/k/v/gate/up split by columns and
+  o/down by rows (``shard_params``); the trunk sums the row-split products
+  over the model group (``parallel.collectives.TensorParallel``). Norms
+  and the tied embedding are replicated; q_norm and k_norm act on the
+  rank's heads only, so their gradients are summed over the model group.
+- ``data``: every rank is given the same global batch and takes its own
+  B / data rows. The pooled query and document embeddings are gathered
+  over the data group (``gather_rows``, whose backward keeps this rank's
+  rows) and InfoNCE runs over the global batch on every rank alike. Each
+  rank's gradient is then its rows' share of the global loss's gradient,
+  so the gradients are SUMMED over the data group: the sum is the global
+  batch's gradient, GSPMD's. (A mean would divide it by the data size;
+  a gather whose backward sums over ranks, as ``torch.distributed.nn``'s
+  does, would multiply each share by it.)
+- AdamW is elementwise, so each rank's moments are the global ones'
+  slices.
 
 Parameters are the trunk's dict of tensors (``models.qwen3``), each leaf a
 leaf tensor with ``requires_grad``. The PyTorch idiom replaces JAX's pure
@@ -26,6 +47,12 @@ import torch.nn.functional as F
 
 from lean_explore_tpu_torch.models import qwen3
 from lean_explore_tpu_torch.models.qwen3 import Qwen3Config
+from lean_explore_tpu_torch.parallel.collectives import (
+    all_reduce_many,
+    gather_dim,
+    gather_rows,
+    tensor_parallel,
+)
 from lean_explore_tpu_torch.util.platform import resolve_device
 
 
@@ -45,16 +72,170 @@ class ContrastiveBatch(NamedTuple):
         return ContrastiveBatch(*(x.to(device) for x in self))
 
 
-def param_leaves(params: dict) -> list[torch.Tensor]:
-    """The parameter tensors in a fixed order: embed, the layer stacks by
-    name, final_norm, lm_head when untied. The optimizer, the checkpoint
-    and the JAX state converter all use this order."""
-    leaves = [params["embed"]]
-    leaves += [params["layers"][name] for name in sorted(params["layers"])]
-    leaves.append(params["final_norm"])
+def leaf_paths(params: dict) -> list[tuple[str, ...]]:
+    """The keys of each parameter tensor in a fixed order: embed, the layer
+    stacks by name, final_norm, lm_head when untied. The optimizer, the
+    checkpoint and the JAX state converter all use this order."""
+    paths = [("embed",)] + [("layers", name) for name in sorted(params["layers"])]
+    paths.append(("final_norm",))
     if params.get("lm_head") is not None:
-        leaves.append(params["lm_head"])
-    return leaves
+        paths.append(("lm_head",))
+    return paths
+
+
+def param_leaves(params: dict) -> list[torch.Tensor]:
+    """The parameter tensors in ``leaf_paths`` order."""
+    return [_at(params, path) for path in leaf_paths(params)]
+
+
+def _at(tree: dict, path: tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _with_leaves(params: dict, leaves: list) -> dict:
+    """A params dict of the same keys holding ``leaves`` (``leaf_paths``
+    order)."""
+    out = {"embed": None, "layers": {}, "final_norm": None, "lm_head": None}
+    for path, leaf in zip(leaf_paths(params), leaves):
+        if len(path) == 2:
+            out["layers"][path[1]] = leaf
+        else:
+            out[path[0]] = leaf
+    return out
+
+
+# JAX's PartitionSpecs (lean_explore_tpu/train/contrastive.py:29-48) as
+# tuples by ``leaf_paths`` path: the position of "model" is the dimension
+# split over the model axis; a spec without it is replicated.
+_SPECS = {
+    ("embed",): (None, None),
+    ("layers", "input_norm"): (None, None),
+    ("layers", "q_proj"): (None, None, "model"),
+    ("layers", "k_proj"): (None, None, "model"),
+    ("layers", "v_proj"): (None, None, "model"),
+    ("layers", "o_proj"): (None, "model", None),
+    ("layers", "q_norm"): (None, None),
+    ("layers", "k_norm"): (None, None),
+    ("layers", "post_norm"): (None, None),
+    ("layers", "gate_proj"): (None, None, "model"),
+    ("layers", "up_proj"): (None, None, "model"),
+    ("layers", "down_proj"): (None, "model", None),
+    ("final_norm",): (None,),
+    ("lm_head",): (None, "model"),
+}
+# Replicated leaves applied to this rank's heads only: their gradients are
+# partial sums over the model group.
+_PER_HEAD_LEAVES = (("layers", "q_norm"), ("layers", "k_norm"))
+
+
+def param_partition_specs(config: Qwen3Config) -> dict:
+    """The tensor-parallel layout over ``model``, JAX's specs as tuples:
+    q/k/v/gate/up split by columns, o/down by rows, an untied lm_head by
+    columns; norms and the embedding replicated (lm_head None when tied)."""
+    return {
+        "embed": _SPECS[("embed",)],
+        "layers": {path[1]: spec for path, spec in _SPECS.items() if len(path) == 2},
+        "final_norm": _SPECS[("final_norm",)],
+        "lm_head": None if config.tie_word_embeddings else _SPECS[("lm_head",)],
+    }
+
+
+def split_dims(params: dict) -> list[int | None]:
+    """Per ``leaf_paths`` leaf, the dimension split over ``model``, or None."""
+    return [
+        _SPECS[path].index("model") if "model" in _SPECS[path] else None
+        for path in leaf_paths(params)
+    ]
+
+
+def _model_coord(mesh) -> tuple[int, int]:
+    """(model size, this rank's model index) of a mesh, or (1, 0)."""
+    if mesh is None:
+        return 1, 0
+    size = mesh.shape.get("model", 1)
+    return size, (mesh.coords or {}).get("model", 0)
+
+
+def commit_to_mesh(params: dict, mesh) -> dict:
+    """Every leaf as a trainable leaf tensor on this rank's mesh device
+    (JAX's re-places single-device leaves mesh-replicated)."""
+    return _with_leaves(params, [
+        leaf.detach().to(mesh.device).contiguous().requires_grad_(True)
+        for leaf in param_leaves(params)
+    ])
+
+
+def shard_params(params: dict, mesh, config: Qwen3Config) -> dict:
+    """This rank's shard of full ``params`` (``param_partition_specs``),
+    trainable on its mesh device. Raises where ``model`` does not divide
+    the KV heads (each rank holds whole heads, grouped as GQA groups them),
+    the MLP width or an untied vocabulary."""
+    model, m = _model_coord(mesh)
+    for name, size in (
+        ("num_key_value_heads", config.num_key_value_heads),
+        ("intermediate_size", config.intermediate_size),
+        ("vocab_size", config.vocab_size if params.get("lm_head") is not None else 0),
+    ):
+        if size % model:
+            raise ValueError(f"model axis {model} does not divide {name}={size}")
+    leaves = []
+    for leaf, dim in zip(param_leaves(params), split_dims(params)):
+        if dim is not None and model > 1:
+            n = leaf.shape[dim] // model
+            leaf = leaf.narrow(dim, m * n, n)
+        leaves.append(leaf)
+    return commit_to_mesh(_with_leaves(params, leaves), mesh)
+
+
+def gather_leaves(tensors: list[torch.Tensor], params: dict, mesh) -> list[torch.Tensor]:
+    """Tensors shaped like this rank's ``param_leaves`` (the leaves, their
+    gradients or moments) made whole over the model group, detached."""
+    model, _ = _model_coord(mesh)
+    return [
+        t.detach() if dim is None or model == 1
+        else gather_dim(t.detach().contiguous(), dim, mesh.groups["model"])
+        for t, dim in zip(tensors, split_dims(params))
+    ]
+
+
+def local_rows(batch, mesh, *, keep_last: bool = False):
+    """This rank's B / data rows of a global batch (the last field whole
+    when ``keep_last``: InfoNCE's [B, B] duplicate mask). Raises where the
+    data axis does not divide B."""
+    data = 1 if mesh is None else mesh.shape.get("data", 1)
+    if data == 1:
+        return batch
+    rows = batch[0].shape[0]
+    if rows % data:
+        raise ValueError(f"batch size {rows} is not a multiple of the data axis {data}")
+    per = rows // data
+    d = mesh.coords["data"]
+    fields = [x[d * per : (d + 1) * per] for x in batch]
+    if keep_last:
+        fields[-1] = batch[-1]
+    return type(batch)(*fields)
+
+
+def reduce_gradients(params: dict, mesh, *, mean: bool) -> None:
+    """Make each rank's gradients the global step's: q_norm and k_norm
+    summed over the model group, then every gradient summed over the data
+    group, or averaged when the loss is a mean over each rank's rows."""
+    if mesh is None:
+        return
+    model, _ = _model_coord(mesh)
+    if model > 1:
+        all_reduce_many(
+            [_at(params, p).grad for p in _PER_HEAD_LEAVES], mesh.groups["model"]
+        )
+    data = mesh.shape.get("data", 1)
+    if data > 1:
+        grads = [leaf.grad for leaf in param_leaves(params) if leaf.grad is not None]
+        all_reduce_many(grads, mesh.groups["data"])
+        if mean:
+            for g in grads:
+                g.div_(data)
 
 
 def infonce_loss(
@@ -62,11 +243,19 @@ def infonce_loss(
     config: Qwen3Config,
     batch: ContrastiveBatch,
     temperature: float = 0.05,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Symmetric InfoNCE with in-batch negatives, duplicate-positive
-    columns at -1e9: (loss, {"loss", "accuracy"}), as the JAX function."""
-    q = qwen3.embed_pool(params, config, batch.query_ids, batch.query_mask)
-    d = qwen3.embed_pool(params, config, batch.doc_ids, batch.doc_mask)
+    columns at -1e9: (loss, {"loss", "accuracy"}), as the JAX function.
+    On a mesh, ``batch`` holds this rank's rows and the global duplicate
+    mask, and the loss is the global batch's (module docstring)."""
+    tp = tensor_parallel(mesh)
+    q = qwen3.embed_pool(params, config, batch.query_ids, batch.query_mask, tp=tp)
+    d = qwen3.embed_pool(params, config, batch.doc_ids, batch.doc_mask, tp=tp)
+    if mesh is not None:
+        q = gather_rows(q, mesh.groups.get("data"))
+        d = gather_rows(d, mesh.groups.get("data"))
     logits = (q @ d.T) / temperature  # [B, B] f32
     logits = logits.masked_fill(batch.doc_dup_mask.to(torch.bool), -1e9)
     labels = torch.arange(logits.shape[0], device=logits.device)
@@ -178,7 +367,7 @@ def apply_schedule(opt_state: torch.optim.Optimizer) -> None:
         group["lr"] = lr
 
 
-def make_train_step(config: Qwen3Config, temperature: float = 0.05):
+def make_train_step(config: Qwen3Config, temperature: float = 0.05, *, mesh=None):
     """Train step (params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``opt_state`` is the ``torch.optim.AdamW`` that ``make_optimizer``'s
@@ -187,14 +376,19 @@ def make_train_step(config: Qwen3Config, temperature: float = 0.05):
     the scheduled rate (``apply_schedule``), takes the loss's gradient by
     autograd and lets the optimizer update the params and its moments in
     place, so it returns the objects it was given; metrics are detached
-    scalars.
+    scalars. On a ``mesh`` (``parallel.mesh.init_distributed``) ``params``
+    is this rank's shard (``shard_params``), every rank is given the same
+    global batch, and the gradients are summed over the data group (module
+    docstring).
     """
 
     def step(params, opt_state, batch: ContrastiveBatch):
         apply_schedule(opt_state)
         opt_state.zero_grad(set_to_none=True)
-        loss, metrics = infonce_loss(params, config, batch, temperature)
+        local = local_rows(batch, mesh, keep_last=True)
+        loss, metrics = infonce_loss(params, config, local, temperature, mesh=mesh)
         loss.backward()
+        reduce_gradients(params, mesh, mean=False)
         opt_state.step()
         return params, opt_state, metrics
 
@@ -216,13 +410,15 @@ def init_train_state(
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = None,
     draw: str = "torch",
+    mesh=None,
 ):
     """Random-init params on ``device`` (CUDA unless the caller asks for
     the CPU) and the matching optimizer state. ``draw`` "torch" draws
     ``qwen3.init_params`` from a ``torch.Generator`` seeded with ``seed``
     on ``device``; "threefry" draws the JAX package's init at ``seed``
-    (``qwen3.init_params_threefry``)."""
-    device = resolve_device(device)
+    (``qwen3.init_params_threefry``). On a ``mesh`` every rank draws the
+    whole init on its device and keeps its shard (``shard_params``)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     if draw == "torch":
         generator = torch.Generator(device=device).manual_seed(seed)
         params = qwen3.init_params(config, generator, dtype=dtype, device=device)
@@ -230,7 +426,7 @@ def init_train_state(
         params = qwen3.init_params_threefry(config, seed, dtype=dtype, device=device)
     else:
         raise ValueError(f"unknown draw {draw!r}: 'torch' or 'threefry'")
-    params = trainable(params)
+    params = shard_params(params, mesh, config) if mesh is not None else trainable(params)
     return params, optimizer(params)
 
 

@@ -4,7 +4,14 @@ the counterpart of lean_explore_tpu/train/cross_encoder.py.
 Binary softmax cross-entropy over the (false, true) logits at the last
 valid position of ``format_pair`` texts, on labeled (query, document,
 match?) triples: exactly the two vocabulary columns ``RerankerClient``
-reads as P(true). The mesh is not ported: one device only.
+reads as P(true).
+
+On a (data, model) mesh of processes the step is the contrastive step's
+(``train.contrastive``), with one difference: the loss is a mean over each
+rank's rows, so the gradients are averaged over the data group (the mean
+of the ranks' means is the global batch's mean, GSPMD's). An untied
+lm_head is split by columns, so the two pair columns are gathered from
+whichever model rank holds them before the pair logits.
 """
 
 from collections.abc import Iterator
@@ -16,7 +23,12 @@ import torch.nn.functional as F
 
 from lean_explore_tpu_torch.models import qwen3
 from lean_explore_tpu_torch.models.qwen3 import Qwen3Config
-from lean_explore_tpu_torch.train.contrastive import apply_schedule
+from lean_explore_tpu_torch.parallel.collectives import all_reduce_, tensor_parallel
+from lean_explore_tpu_torch.train.contrastive import (
+    apply_schedule,
+    local_rows,
+    reduce_gradients,
+)
 from lean_explore_tpu_torch.train.data import encode_fixed
 
 # The serving client's definition: training sees byte-identical pairs.
@@ -37,6 +49,24 @@ class CrossEncoderBatch(NamedTuple):
         return CrossEncoderBatch(*(x.to(device) for x in self))
 
 
+def _pair_logits(params, pooled, token_false: int, token_true: int, tp):
+    """``qwen3._pair_logits``; with a column-split lm_head, the two columns
+    are taken from the rank that holds each (zeros elsewhere) and summed
+    over the model group: an all-reduce forward whose identity backward
+    hands each column's gradient to its owner."""
+    head = params.get("lm_head")
+    if head is None or tp is None:
+        return qwen3._pair_logits(params, pooled, token_false, token_true)
+    width = head.shape[1]
+    sliver = [
+        head[:, col - tp.index * width] if col // width == tp.index
+        else head.new_zeros(head.shape[0])
+        for col in (token_false, token_true)
+    ]
+    sliver = tp.reduce(torch.stack(sliver, dim=1))
+    return pooled.to(torch.float32) @ sliver.to(torch.float32)
+
+
 def cross_encoder_loss(
     params: dict,
     config: Qwen3Config,
@@ -44,31 +74,48 @@ def cross_encoder_loss(
     *,
     token_true: int,
     token_false: int,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Binary CE over the (false, true) logits at the last valid token;
-    label 1 is the "true" column, the one the client's softmax reads."""
-    hidden = qwen3.forward_hidden(params, config, batch.input_ids, batch.attention_mask)
+    label 1 is the "true" column, the one the client's softmax reads. On a
+    mesh, ``batch`` holds this rank's rows and the loss is their mean."""
+    tp = tensor_parallel(mesh)
+    hidden = qwen3.forward_hidden(
+        params, config, batch.input_ids, batch.attention_mask, tp=tp
+    )
     pooled = qwen3._pool_last(hidden, batch.attention_mask)
-    pair = qwen3._pair_logits(params, pooled, token_false, token_true)  # [B, 2]
+    pair = _pair_logits(params, pooled, token_false, token_true, tp)  # [B, 2]
     labels = batch.labels.long()
     loss = F.cross_entropy(pair, labels)
     accuracy = (pair.argmax(dim=1) == labels).float().mean()
     return loss, {"loss": loss.detach(), "accuracy": accuracy}
 
 
-def make_ce_train_step(config: Qwen3Config, *, token_true: int, token_false: int):
+def make_ce_train_step(
+    config: Qwen3Config, *, token_true: int, token_false: int, mesh=None
+):
     """Train step (params, opt_state, batch) -> (params, opt_state, metrics)
     with the scheduled rate and the updates in place, as
-    ``contrastive.make_train_step``."""
+    ``contrastive.make_train_step``; on a ``mesh`` the gradients are
+    averaged over the data group, and the metrics are the global batch's
+    (the ranks' means averaged)."""
 
     def step(params, opt_state, batch: CrossEncoderBatch):
         apply_schedule(opt_state)
         opt_state.zero_grad(set_to_none=True)
         loss, metrics = cross_encoder_loss(
-            params, config, batch, token_true=token_true, token_false=token_false
+            params, config, local_rows(batch, mesh),
+            token_true=token_true, token_false=token_false, mesh=mesh,
         )
         loss.backward()
+        reduce_gradients(params, mesh, mean=True)
         opt_state.step()
+        data = 1 if mesh is None else mesh.shape.get("data", 1)
+        if data > 1:
+            both = all_reduce_(
+                torch.stack([metrics["loss"], metrics["accuracy"]]), mesh.groups["data"]
+            ) / data
+            metrics = {"loss": both[0], "accuracy": both[1]}
         return params, opt_state, metrics
 
     return step

@@ -10,6 +10,7 @@ the device synchronized at their ends; they describe the run, and no
 result depends on them.
 """
 
+import os
 import shutil
 import sys
 import time
@@ -70,6 +71,27 @@ def model_config(vocab_size: int, hidden_size: int, num_layers: int) -> Qwen3Con
         head_dim=hidden_size // 4,
         intermediate_size=hidden_size * 2,
     )
+
+
+def train_mesh(device: torch.device):
+    """The JAX scripts' (n, 1) training mesh when torchrun started n > 1
+    ranks (``parallel.mesh.init_distributed``: each rank on its card, or
+    on the CPU when ``device`` is), else None: one rank trains alone."""
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if ranks == 1:
+        return None
+    from lean_explore_tpu_torch.parallel.mesh import init_distributed
+
+    return init_distributed((ranks, 1), device=device)
+
+
+def rank_out(out: Path, mesh) -> Path:
+    """Where a rank writes: ``out`` for rank 0 (and one rank alone), a
+    ``rank<r>`` directory under it for the others, which train beside rank
+    0 and stop after training."""
+    if mesh is None or mesh.coords["data"] == 0:
+        return out
+    return out / f"rank{mesh.coords['data']}"
 
 
 def lr_schedule(learning_rate: float, steps: int):

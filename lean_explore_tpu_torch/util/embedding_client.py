@@ -21,6 +21,7 @@ import torch
 from lean_explore_tpu_torch.models import qwen3 as qwen3_mod
 from lean_explore_tpu_torch.models.hf_loader import load_params
 from lean_explore_tpu_torch.models.tokenizer import encode_batch, load_tokenizer
+from lean_explore_tpu_torch.parallel.rerank import rerank_data_mesh, replicate_params
 from lean_explore_tpu_torch.util.platform import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -76,7 +77,8 @@ def resolve_model_dir(model_name: str) -> Path:
 
 
 class EmbeddingClient:
-    """Client for generating text embeddings on one device."""
+    """Client for generating text embeddings, data-parallel over a mesh's
+    ``data`` devices (one device unless a mesh is given)."""
 
     def __init__(
         self,
@@ -89,6 +91,7 @@ class EmbeddingClient:
         query_prompt: str | None = None,
         append_eos: bool = True,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
         """Load tokenizer + params onto ``device`` (default CUDA).
 
@@ -103,6 +106,11 @@ class EmbeddingClient:
             query_prompt: Override the asymmetric query prefix.
             append_eos: Append EOS before pooling (Qwen3 embedding models).
             device: Where the params live; CUDA unless the CPU is asked for.
+            mesh: Optional ``parallel.Mesh`` with a ``data`` axis: the
+                params load onto its first device and are copied to each
+                other distinct device, and each batch's rows are split over
+                ``data`` (the index build's embed stage, and serving on a
+                mesh). Without one, a data mesh of ``device`` alone.
 
         LEAN_EXPLORE_FUSED_QKV=1 serves the fused projection layout
         (``qwen3.fuse_params_for_serving``).
@@ -113,7 +121,8 @@ class EmbeddingClient:
         env_batch = os.getenv("LEAN_EXPLORE_EMBEDDING_BATCH_SIZE")
         logger.info("Loading embedding model %s from %s", model_name, resolved)
         params, config = load_params(
-            resolved, dtype=dtype, device=resolve_device(device)
+            resolved, dtype=dtype,
+            device=mesh.devices.flat[0] if mesh is not None else resolve_device(device),
         )
         if os.getenv("LEAN_EXPLORE_FUSED_QKV") == "1":
             # Column-exact fusion of q/k/v and gate/up, as the JAX client.
@@ -136,6 +145,7 @@ class EmbeddingClient:
                 if query_prompt is not None
                 else _read_query_prompt(resolved)
             ),
+            mesh=mesh,
         )
 
     @classmethod
@@ -151,20 +161,22 @@ class EmbeddingClient:
         batch_size: int = 64,
         append_eos: bool = True,
         query_prompt: str = "",
+        mesh=None,
     ) -> "EmbeddingClient":
-        """A client around already-loaded params (on their device), config
-        and tokenizer: random-weight benchmarks and tests."""
+        """A client around already-loaded params (on their device, the
+        mesh's first device when ``mesh`` is given), config and tokenizer:
+        random-weight benchmarks and tests."""
         self = object.__new__(cls)
         self._init(
             params, config, tokenizer, model_name=model_name,
             model_dir=model_dir, max_length=max_length, batch_size=batch_size,
-            append_eos=append_eos, query_prompt=query_prompt,
+            append_eos=append_eos, query_prompt=query_prompt, mesh=mesh,
         )
         return self
 
     def _init(
         self, params, config, tokenizer, *, model_name, model_dir, max_length,
-        batch_size, append_eos, query_prompt,
+        batch_size, append_eos, query_prompt, mesh,
     ) -> None:
         """Every attribute the scoring paths touch, in one place."""
         self.model_name = model_name
@@ -177,6 +189,36 @@ class EmbeddingClient:
         self.params, self.config = params, config
         self.device = params["embed"].device
         self.query_prompt = query_prompt
+        # Off a mesh, a data mesh of the params' one device.
+        self.mesh = mesh if mesh is not None else rerank_data_mesh(devices=[self.device])
+        self._replicas = replicate_params(params, self.mesh)
+        n_data = self.mesh.shape["data"]
+        # Each device batch splits evenly over the data axis.
+        self.batch_size = max(n_data, (self.batch_size // n_data) * n_data)
+        if n_data > 1:
+            logger.info("embedding DP over %d devices (batch %d)", n_data, self.batch_size)
+
+    def _embed_mesh(self, ids: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
+        """One right-padded token batch with its rows split over the mesh's
+        data devices, padded to a multiple of them (``embed_pool_from_ids``
+        keeps one valid token in each row); the embeddings gathered on the
+        first device, pad rows included."""
+        devices = list(self.mesh.devices.flat)
+        rows = ids.shape[0]
+        padded = -(-rows // len(devices)) * len(devices)
+        if padded != rows:
+            ids = np.pad(ids, ((0, padded - rows), (0, 0)))
+            lengths = np.pad(lengths, (0, padded - rows))
+        per = padded // len(devices)
+        out = []
+        for i, device in enumerate(devices):
+            part = slice(i * per, (i + 1) * per)
+            out.append(qwen3_mod.embed_pool_from_ids(
+                self._replicas[device], self.config,
+                torch.from_numpy(np.ascontiguousarray(ids[part])).to(device),
+                torch.from_numpy(np.ascontiguousarray(lengths[part])).to(device),
+            ))
+        return out[0] if len(out) == 1 else torch.cat([e.to(self.device) for e in out])
 
     @property
     def dim(self) -> int:
@@ -201,11 +243,10 @@ class EmbeddingClient:
                     max_length=self.max_length,
                     append_eos=self.append_eos,
                 )
-            ids = torch.from_numpy(batch.input_ids).to(self.device)
-            lengths = torch.from_numpy(
-                batch.attention_mask.sum(axis=1).astype(np.int32)
-            ).to(self.device)
-            emb = qwen3_mod.embed_pool_from_ids(self.params, self.config, ids, lengths)
+            emb = self._embed_mesh(
+                np.asarray(batch.input_ids),
+                np.asarray(batch.attention_mask).sum(axis=1).astype(np.int32),
+            )
             out.append(emb[: batch.n_valid])
         return out[0] if len(out) == 1 else torch.cat(out, dim=0)
 

@@ -1,6 +1,7 @@
 """Device selection: the port runs on CUDA unless the caller asks for the CPU."""
 
 import os
+import re
 
 import torch
 
@@ -31,3 +32,23 @@ def requested_device() -> torch.device:
         "xla_force_host_platform_device_count" in os.environ.get("XLA_FLAGS", "")
     )
     return resolve_device("cpu" if wants_cpu else None)
+
+
+def host_device_count() -> int:
+    """The number of virtual CPU devices: ``XLA_FLAGS``'s
+    ``--xla_force_host_platform_device_count=N``, as JAX reads it, else 1."""
+    match = re.search(
+        r"--xla_force_host_platform_device_count=(\d+)", os.environ.get("XLA_FLAGS", "")
+    )
+    return int(match.group(1)) if match else 1
+
+
+def mesh_devices(device: str | torch.device | None = None) -> list[torch.device]:
+    """The devices a mesh spans by default: every CUDA card, or the
+    virtual CPU devices (``host_device_count``, each the one CPU) when the
+    CPU is asked for, by ``device`` or else by the environment
+    (``requested_device``)."""
+    device = requested_device() if device is None else resolve_device(device)
+    if device.type == "cpu":
+        return [torch.device("cpu")] * host_device_count()
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -29,6 +29,11 @@ from lean_explore_tpu_torch.models.tokenizer import (
     encode_batch,
     load_tokenizer,
 )
+from lean_explore_tpu_torch.parallel.rerank import (
+    make_sharded_grouped_scorer,
+    rerank_data_mesh,
+    replicate_params,
+)
 from lean_explore_tpu_torch.util.embedding_client import resolve_model_dir
 from lean_explore_tpu_torch.util.platform import resolve_device
 
@@ -97,6 +102,7 @@ class RerankerClient:
         batch_size: int | None = None,
         dtype: str | torch.dtype | None = None,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
         """Load tokenizer + params onto ``device`` (default CUDA).
 
@@ -113,6 +119,13 @@ class RerankerClient:
                 loads bf16 and quantizes the projections, so embed, norms
                 and the tied head stay bf16.
             device: Where the params live; CUDA unless the CPU is asked for.
+            mesh: Optional ``parallel.Mesh`` with a ``data`` axis: the
+                params load onto its first device and are copied once to
+                each other distinct device, and the grouped prefix-KV path
+                splits its query groups over ``data``
+                (``parallel.rerank``); the flat path runs on the first.
+                Without one, the grouped path runs on a data mesh of
+                ``device`` alone.
 
         LEAN_EXPLORE_FUSED_QKV=1 fuses the projections before any
         quantization (``qwen3.fuse_params_for_serving``).
@@ -127,7 +140,7 @@ class RerankerClient:
         params, config = load_params(
             resolved,
             dtype=torch.bfloat16 if int8 else dtype,
-            device=resolve_device(device),
+            device=mesh.devices.flat[0] if mesh is not None else resolve_device(device),
         )
         if os.getenv("LEAN_EXPLORE_FUSED_QKV") == "1":
             params = qwen3_mod.fuse_params_for_serving(params)
@@ -147,6 +160,7 @@ class RerankerClient:
                 else (int(env_batch) if env_batch else DEFAULT_BATCH_SIZE)
             ),
             int8=int8,
+            mesh=mesh,
         )
 
     @classmethod
@@ -162,22 +176,24 @@ class RerankerClient:
         instruction: str = DEFAULT_INSTRUCTION,
         batch_size: int = 64,
         int8: bool = False,
+        mesh=None,
     ) -> "RerankerClient":
-        """A client around already-loaded params (on their device), config
-        and tokenizer: random-weight benchmarks and tests. The params are
-        taken as they are; pass ``int8=True`` when they are already
-        quantized (``qwen3.quantize_params_int8``), as in JAX."""
+        """A client around already-loaded params (on their device, the
+        mesh's first device when ``mesh`` is given), config and tokenizer:
+        random-weight benchmarks and tests. The params are taken as they
+        are; pass ``int8=True`` when they are already quantized
+        (``qwen3.quantize_params_int8``), as in JAX."""
         self = object.__new__(cls)
         self._init(
             params, config, tokenizer, model_name=model_name,
             model_dir=model_dir, max_length=max_length,
-            instruction=instruction, batch_size=batch_size, int8=int8,
+            instruction=instruction, batch_size=batch_size, int8=int8, mesh=mesh,
         )
         return self
 
     def _init(
         self, params, config, tokenizer, *, model_name, model_dir, max_length,
-        instruction, batch_size, int8,
+        instruction, batch_size, int8, mesh,
     ) -> None:
         """Every attribute the scoring paths touch, in one place."""
         self.model_name = model_name
@@ -190,6 +206,12 @@ class RerankerClient:
         self.int8 = int8
         self.params, self.config = params, config
         self.device = params["embed"].device
+        # Off a mesh, a data mesh of the params' one device.
+        self.mesh = mesh if mesh is not None else rerank_data_mesh(devices=[self.device])
+        self._replicas = replicate_params(params, self.mesh)
+        self._sharded_scorers: dict = {}
+        if self.mesh.shape["data"] > 1:
+            logger.info("reranker DP over %d devices", self.mesh.shape["data"])
         self.token_true_id = tokenizer.convert_tokens_to_ids("true")
         self.token_false_id = tokenizer.convert_tokens_to_ids("false")
         if self.token_true_id is None or self.token_false_id is None:
@@ -197,6 +219,17 @@ class RerankerClient:
                 "Tokenizer lacks 'true'/'false' tokens required for "
                 "reranker scoring."
             )
+
+    def _sharded_scorer(self, chunk: int):
+        """The mesh's grouped scorer for ``chunk`` groups a step, built once."""
+        scorer = self._sharded_scorers.get(chunk)
+        if scorer is None:
+            scorer = make_sharded_grouped_scorer(
+                self.config, self.mesh, token_true=int(self.token_true_id),
+                token_false=int(self.token_false_id), group_chunk=chunk,
+            )
+            self._sharded_scorers[chunk] = scorer
+        return scorer
 
     def _format_pair(self, query: str, document: str) -> str:
         return format_pair(query, document, self.instruction)
@@ -469,7 +502,10 @@ class RerankerClient:
         fetches = []
         for s_bucket, recs in sorted(by_bucket.items()):
             chunk = min(GROUP_CHUNK, bucket_batch(len(recs)))
-            g_pad = -(-len(recs) // chunk) * chunk
+            # G splits evenly over the data devices, so it pads to a
+            # multiple of data x chunk; pad groups are discarded below.
+            g_align = chunk * self.mesh.shape["data"]
+            g_pad = -(-len(recs) // g_align) * g_align
             d_pad = max(len(r[2]) for r in recs)
             p_pad = bucket_length(max(len(r[1]) for r in recs), self.max_length)
             prefix_ids = np.full((g_pad, p_pad), pad_id, dtype=np.int32)
@@ -492,22 +528,9 @@ class RerankerClient:
             flat_mask = suffix_mask.reshape(g_pad * d_pad, s_bucket)
             flat_mask[~flat_mask.any(axis=1), 0] = 1
 
-            pmask = self._tensor(prefix_mask)
-            pk, pv = qwen3_mod.prefix_kv(
-                self.params, self.config, self._tensor(prefix_ids), pmask
-            )
-            scores = qwen3_mod.rerank_scores_grouped(
-                self.params,
-                self.config,
-                pk,
-                pv,
-                pmask,
-                self._tensor(suffix_ids),
-                self._tensor(suffix_mask),
-                self._tensor(pos_offset),
-                token_true=int(self.token_true_id),
-                token_false=int(self.token_false_id),
-                group_chunk=chunk,
+            scores = self._sharded_scorer(chunk)(
+                self._replicas, prefix_ids, prefix_mask, suffix_ids, suffix_mask,
+                pos_offset,
             )
             fetches.append((recs, scores))
         # Every bucket is issued before the first copy back.

@@ -32,6 +32,11 @@ arguments:
         --n-concepts 48 --n-eval 32 --steps 300 --batch-size 32 \\
         --hidden-size 64 --device cpu
 
+Under ``torchrun --nproc-per-node N`` the N ranks train data-parallel on
+the JAX script's (N, 1) mesh (``train.e2e.train_mesh``) on the same global
+batches; rank 0 evaluates and writes, the others write under
+``<out>/rank<r>`` and stop after training. One rank runs as above.
+
 Writes eval.json (the JAX script's keys, plus on CUDA
 ``bin_topk_selection_on_trained_geometry``) and timing.json (pairs/s, the
 loader's share of a step, peak memory, embedding docs/s, seconds a stage)
@@ -148,8 +153,11 @@ def selection_check(q_vecs: torch.Tensor, corpus_mat: torch.Tensor) -> dict:
 def main(argv: list[str] | None = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    mesh = e2e.train_mesh(device)  # torchrun's ranks, as the JAX script's (n, 1) mesh
+    if mesh is not None:
+        device = mesh.device
     started = time.perf_counter()
-    out = args.out
+    out = e2e.rank_out(args.out, mesh)
     out.mkdir(parents=True, exist_ok=True)
     timing: dict = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
 
@@ -171,7 +179,7 @@ def main(argv: list[str] | None = None) -> dict:
     config = e2e.model_config(vocab_size, args.hidden_size, args.num_layers)
     optimizer = make_optimizer(learning_rate=e2e.lr_schedule(args.learning_rate, args.steps))
     params, opt_state = init_train_state(
-        config, optimizer, seed=args.seed, device=device, draw="threefry"
+        config, optimizer, seed=args.seed, device=device, draw="threefry", mesh=mesh
     )
     # The step updates params in place: the random init is exported first.
     random_ckpt = export_hf_checkpoint(
@@ -186,9 +194,11 @@ def main(argv: list[str] | None = None) -> dict:
         )
 
     history, timing["train"] = e2e.train_steps(
-        make_train_step(config), params, opt_state, iter(loader()), steps=args.steps,
-        batch_size=args.batch_size, device=device, log_every=100,
+        make_train_step(config, mesh=mesh), params, opt_state, iter(loader()),
+        steps=args.steps, batch_size=args.batch_size, device=device, log_every=100,
     )
+    if out != args.out:  # a rank other than 0 trains beside it and stops
+        return {"train_history": history}
     e2e.loader_share(timing["train"], loader())
     trained_ckpt = export_hf_checkpoint(
         params, config, out / "checkpoint", tokenizer_dir=tok_dir, query_prompt=QUERY_PROMPT,

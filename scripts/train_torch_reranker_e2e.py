@@ -32,6 +32,11 @@ scripts/train_torch_embedder_e2e.py:
         --n-eval 32 --steps 400 --batch-size 32 --hidden-size 64 \\
         --num-layers 2 --rerank-top 20 --no-name-variants --device cpu
 
+Under ``torchrun --nproc-per-node N`` the N ranks train data-parallel on
+the JAX script's (N, 1) mesh (``train.e2e.train_mesh``) on the same global
+batches; rank 0 evaluates and writes, the others write under
+``<out>/rank<r>`` and stop after training. One rank runs as above.
+
 Writes eval.json (the JAX script's keys) and timing.json (pairs/s, the
 loader's share of a step, peak memory, embedding docs/s, seconds a stage)
 under --out, and prints the direct and pipeline results as one JSON line.
@@ -155,13 +160,16 @@ def distractor_groups(corpus, seed: int) -> tuple[list[str], list[list[str]]]:
 def main(argv: list[str] | None = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    mesh = e2e.train_mesh(device)  # torchrun's ranks, as the JAX script's (n, 1) mesh
+    if mesh is not None:
+        device = mesh.device
     if not (args.embedder / "model.safetensors").exists():
         sys.exit(
             f"no embedder checkpoint at {args.embedder}: run "
             "scripts/train_torch_embedder_e2e.py first (or pass --embedder)"
         )
     started = time.perf_counter()
-    out = args.out
+    out = e2e.rank_out(args.out, mesh)
     out.mkdir(parents=True, exist_ok=True)
     timing: dict = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
 
@@ -186,7 +194,7 @@ def main(argv: list[str] | None = None) -> dict:
     config = e2e.model_config(vocab_size, args.hidden_size, args.num_layers)
     optimizer = make_optimizer(learning_rate=e2e.lr_schedule(args.learning_rate, args.steps))
     params, opt_state = init_train_state(
-        config, optimizer, seed=args.seed, device=device, draw="threefry"
+        config, optimizer, seed=args.seed, device=device, draw="threefry", mesh=mesh
     )
     # The step updates params in place: the random init is exported first.
     random_ckpt = export_hf_checkpoint(params, config, out / "random_checkpoint", tokenizer_dir=tok_dir)
@@ -198,11 +206,15 @@ def main(argv: list[str] | None = None) -> dict:
             truncation_caps=tuple(args.truncation_caps),
         )
 
-    step_fn = make_ce_train_step(config, token_true=token_true, token_false=token_false)
+    step_fn = make_ce_train_step(
+        config, token_true=token_true, token_false=token_false, mesh=mesh
+    )
     history, timing["train"] = e2e.train_steps(
         step_fn, params, opt_state, iter(loader()), steps=args.steps,
         batch_size=args.batch_size, device=device, log_every=200,
     )
+    if out != args.out:  # a rank other than 0 trains beside it and stops
+        return {"train_history": history}
     e2e.loader_share(timing["train"], loader())
     trained_ckpt = export_hf_checkpoint(params, config, out / "checkpoint", tokenizer_dir=tok_dir)
     log(f"exported trained reranker checkpoint: {trained_ckpt}")

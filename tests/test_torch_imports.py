@@ -22,7 +22,9 @@ forbidden modules are in ``sys.modules``. Another runs five steps of each
 end-to-end training script (scripts/train_torch_*_e2e.py) and reports the
 same, and a third the extraction stages (a doc-gen4 database parsed,
 informalized through a stand-in client, the OpenRouter client built) and
-the byte-level BPE reader on the committed fixture.
+the byte-level BPE reader on the committed fixture, and a fourth the mesh
+package (``lean_explore_tpu_torch.parallel``: a sharded index by each
+method, the data-parallel scorer, a one-rank training mesh).
 """
 
 import json
@@ -309,3 +311,47 @@ def test_extraction_and_bpe_import_no_forbidden_module():
     assert proc.returncode == 0, proc.stderr[-3000:]
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert loaded == [], f"the port's extraction path or BPE reader imported {loaded}"
+
+
+PARALLEL = r"""
+import json, os, sys, tempfile
+import numpy as np
+import torch
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+from lean_explore_tpu_torch import parallel
+from lean_explore_tpu_torch.models import qwen3
+from lean_explore_tpu_torch.train import contrastive
+
+rows = np.random.default_rng(0).standard_normal((300, 16)).astype(np.float32)
+for kw in ({"method": "fused"}, {"dtype": "int8"}, {}):
+    index = parallel.ShardedDenseIndex(rows, np.arange(300), parallel.make_mesh((2, 4)), **kw)
+    assert index.search(rows[:3], k=5)[1].shape == (3, 5)
+config = qwen3.Qwen3Config.tiny()
+params = qwen3.init_params(config, torch.Generator().manual_seed(0), device="cpu")
+mesh = parallel.rerank_data_mesh()
+scorer = parallel.make_sharded_grouped_scorer(config, mesh, token_true=3, token_false=4, group_chunk=1)
+ids = np.ones((8, 4), np.int32)
+assert scorer(parallel.replicate_params(params, mesh), ids, ids, ids[:, None], ids[:, None],
+              np.full(8, 4, np.int32)).shape == (8, 1)
+train_mesh = parallel.init_distributed(
+    (1, 1), init_method="file://" + tempfile.mkdtemp() + "/rendezvous", world_size=1, rank=0,
+    device="cpu",
+)
+params = contrastive.shard_params(params, train_mesh, config)
+print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
+"""
+
+
+def test_parallel_imports_no_forbidden_module():
+    """``lean_explore_tpu_torch.parallel`` driven on the CPU (a sharded
+    index by each method, the data-parallel scorer, a one-rank training
+    mesh) loads neither JAX nor the JAX package."""
+    code = f"FORBIDDEN = {FORBIDDEN!r}\n" + PARALLEL
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert loaded == [], f"the port's parallel package imported {loaded}"

@@ -25,7 +25,7 @@ from lean_explore_tpu.models import DeclarationStore as JaxStore
 from lean_explore_tpu.util.embedding_client import EmbeddingClient as JaxEmbedder
 from lean_explore_tpu_torch.config import Config, is_complete_index
 from lean_explore_tpu_torch.extract import __main__ as cli
-from lean_explore_tpu_torch.extract.embeddings import generate_embeddings
+from lean_explore_tpu_torch.extract.embeddings import _embed_mesh, generate_embeddings
 from lean_explore_tpu_torch.extract.index import build_indices
 from lean_explore_tpu_torch.index.artifacts import (
     build_index_artifacts,
@@ -35,6 +35,7 @@ from lean_explore_tpu_torch.index.dense import DenseIndex
 from lean_explore_tpu_torch.models.store import Declaration, DeclarationStore
 from lean_explore_tpu_torch.train.synthetic import make_corpus
 from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+from lean_explore_tpu_torch.util.platform import mesh_devices
 from tests.extract.test_pipeline_e2e import FakeOpenRouter, lean_root  # noqa: F401
 from tests.helpers import make_tiny_model_dir
 from tests.test_torch_extract import fake_doc_gen4
@@ -294,10 +295,37 @@ def test_cli_runs_the_stages_it_is_given(argv, lean_root, tiny_embedder, tmp_pat
         assert all(r.informalization.startswith("**The ") for r in rows)
 
 
-def test_multi_device_embed_mesh_raises(store, monkeypatch):
+def test_multi_device_embed_mesh_raises(tiny_embedder, tmp_path, monkeypatch):
+    """LEAN_EXPLORE_MESH_SHAPE=1,2 splits the stage's batches over two
+    devices (``_embed_mesh``; here two virtual CPU devices) and writes the
+    one-device embeddings. A shape naming more devices than there are,
+    and, where the environment asks for no CPU and no card exists, the
+    configured mesh raise instead of embedding on fewer devices.
+
+    Tolerance: the default client is bfloat16, and a row's embedding may
+    round differently in a batch of another size (the CPU's bf16 products
+    block by batch): within 2^-7 per coordinate of unit vectors."""
+    def embed(path):
+        with _text_store(path, TEXTS) as s:
+            assert generate_embeddings(
+                s, model_name=str(tiny_embedder), use_cache=False, device="cpu"
+            ) == len(TEXTS)
+            return np.stack([r.informalization_embedding for r in s.iter_all()])
+
+    want = embed(tmp_path / "one.db")
     monkeypatch.setattr(Config, "MESH_SHAPE", "1,2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        generate_embeddings(store, use_cache=False)
+    assert _embed_mesh("cpu").shape == {"data": 2, "corpus": 1}
+    np.testing.assert_allclose(embed(tmp_path / "two.db"), want, atol=2.0**-7)
+    n_devices = len(mesh_devices("cpu"))
+    monkeypatch.setattr(Config, "MESH_SHAPE", f"1,{n_devices + 1}")
+    with pytest.raises(ValueError, match=f"needs {n_devices + 1} devices"):
+        _embed_mesh("cpu")
+    monkeypatch.setattr(Config, "MESH_SHAPE", "1,2")
+    monkeypatch.delenv("XLA_FLAGS", raising=False)
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _embed_mesh()
     monkeypatch.setattr(Config, "MESH_SHAPE", "1")
     assert Config.mesh_shape() == (1, 1)
 

@@ -499,9 +499,12 @@ def test_cli_trains_on_the_cpu_and_resumes(data_dir, tmp_path, monkeypatch):
     records = cli.main(argv + ["--steps", "4"])
     assert [r["step"] for r in records] == [4]
     assert TK.latest_checkpoint(ckpt)[0] == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # One process is a (1, 1) mesh: a mesh of more positions needs as many
+    # ranks (tests/test_torch_parallel_train.py starts them).
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         cli.main(argv + ["--steps", "1", "--mesh", "2,1"])
-    cli.parse_mesh("1,1")
+    assert cli.parse_mesh("1,1") == cli.parse_mesh(None) == (1, 1)
+    assert cli.parse_mesh("2", 2) == cli.parse_mesh(None, 2) == (2, 1)
 
 
 def test_serving_builds_no_graph_and_training_does(tiny, monkeypatch):
