@@ -5,6 +5,7 @@
     python3 chip_smoke.py --training-chain [--seed N]  # phases 1, 2 and 7
     python3 chip_smoke.py --extraction  # phases 1, 2 and 8
     python3 chip_smoke.py --mesh  # phases 1, 2 and 9
+    python3 chip_smoke.py --tools  # phases 1, 2, 6 (embedded without 8) and 10
 
 Phases, each announced before it starts and timed after it ends:
 
@@ -83,10 +84,10 @@ Phases, each announced before it starts and timed after it ends:
    cross-encoder steps in bf16 at max_length 256 (their pairs/s and each
    step's seconds on a line of its own). Every step launches K5's
    forward, dq and dk/dv once per layer each, and no other kernel.
-8. (after phase 7 and before phase 6, which uses its embeddings; its
-   host stages, parse, informalize and the BPE timing, run in a child
-   process started before phase 7, beside the training, since they load
-   one core of the host and nothing of the card) build the
+8. (before phase 6, which uses its embeddings; its host stages, parse,
+   informalize and the BPE timing, run in a child process started with
+   phase 7's, beside phases 4 and 5, since they load one core of the host
+   and nothing of the card) build the
    index of the committed 200k chain with the port's extraction pipeline
    from doc-gen4's output: ``make_corpus`` at the chain's arguments
    written as a doc-gen4 workspace (one Lean source file per module and
@@ -142,7 +143,10 @@ Phases, each announced before it starts and timed after it ends:
 7. train both models end to end at the committed 20k chain's task and
    widths (runs/embedder/eval.json, runs/reranker/eval.json: 20,000
    declarations, 1,200 concepts, 512 held-out queries) with the port's
-   scripts, in-process: scripts/train_torch_embedder_e2e.py at 384 x 6,
+   scripts, in a child process of the card started once phase 3b has
+   ended, so that its host-bound training runs beside phases 4-6, 8, 9
+   and 10 (read after phase 10; ``--training-chain`` runs it alone, the
+   way to time its steps): scripts/train_torch_embedder_e2e.py at 384 x 6,
    3000 steps, --paraphrases, then scripts/train_torch_reranker_e2e.py at
    4000 steps on the embedder it trained (every other flag at its
    default, --seed 0 unless ``--seed`` says otherwise; both start from
@@ -194,8 +198,36 @@ Phases, each announced before it starts and timed after it ends:
    test's tolerance of each other; on every rank K5's forward, dq and
    dk/dv once per layer per step and no other kernel; each mesh step's
    seconds logged as four processes on one card.
+10. (after phase 6) the quality and cascade-calibration tools of
+   ``lean_explore_tpu_torch.evaluation`` at full width on the committed
+   checkpoints. 10a on phase 6's engine: one capture
+   (``capture_rerank_groups``) of the 192 queries of both cascade records
+   (``make_corpus`` at the chain's arguments with n_eval 192, whose
+   picks search phase 6's declarations), K1-f32 once a batch of 64 and
+   no other kernel, then the caps 8, 12, 16, 24, 32, 48, 64 and 96, each
+   scored once (``score_caps``), and from that one scoring the
+   calibration's rows (keep 16, floor 0.95), which must recommend cap 48
+   with containment_top1 and _top3 within 2 queries of
+   runs/scale200k/cascade_calibration.json, and the coverage's, whose
+   top-8/12/16/25 shares must lie within 2 queries of
+   runs/scale200k/prescreen_coverage.json. 10b: the committed 20k chain
+   (runs/embedder and runs/reranker checkpoints in float32, lengths 64 and
+   128) indexed on the card; the three name classes of
+   ``make_name_queries`` (128 queries each) in the four configurations of
+   scripts/eval_query_classes.py and the semantic class's full pipeline,
+   each within 2 queries (MRR 0.004) of runs/query_classes/eval.json,
+   K1-f32 once a batch of 64 in every arm with a dense stage and no
+   kernel in BM25's; then the int8 effects on the same index, held to
+   runs/int8_effects.json: the plain bin-max scan's and the int8 corpus's
+   (K2, once, its carry equal to its twin's bit for bit) dense recall@10
+   within 0.01, the W8A8 reranker's recall@1-of-50 beside the float32
+   one's and their top-1 agreement within 2 queries of 128. The rows of
+   the kept divergence ROADMAP C11 (calibration cap 24, the semantic full
+   pipeline, the plain scan's dense recall) are held instead to JAX's own
+   float32 runs on the CPU (runs/scale200k/cascade_calibration_cap24_divergence.json,
+   runs/jax_f32_cpu) and logged beside their TPU rows.
 Every kernel's launch count is set to 0 just before each path of phases
-3b, 4, 4g, 5, 6, 7, 8 and 9 is driven and read just after it.
+3b, 4, 4g, 5, 6, 7, 8, 9 and 10 is driven and read just after it.
 
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure raises, so the run exits non-zero with its
@@ -1393,9 +1425,18 @@ def main() -> int:
         help="phases 1, 2 and 9 only: build the kernels, then serve and train on a "
         "mesh of virtual devices on the card",
     )
+    parser.add_argument(
+        "--tools", action="store_true",
+        help="phases 1, 2, 6 and 10 only: build the kernels, index the 200k chain "
+        "(embedded without phase 8) and hold the quality tools to their records",
+    )
+    parser.add_argument("--tools-dump", type=Path, default=None,
+                        help="write 10a's captured groups and cap scores here")
     parser.add_argument("--seed", type=int, default=0, help="phase 7's --seed")
     parser.add_argument("--extraction-host", type=Path, default=None,
                         help=argparse.SUPPRESS)  # phase 8's child process
+    parser.add_argument("--training-chain-child", type=Path, default=None,
+                        help=argparse.SUPPRESS)  # phase 7's child process
     parser.add_argument("--card", default="", help=argparse.SUPPRESS)
     parser.add_argument("--mesh-rank", type=int, default=None,
                         help=argparse.SUPPRESS)  # a rank of phase 9c
@@ -1417,6 +1458,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(repo))
     device = torch.device("cuda")
+    if args.training_chain_child is not None:
+        # Phase 7 in the child that the default run starts: the kernels
+        # are built already.
+        return run_training_chain_child(args.training_chain_child, device, args.card,
+                                        repo, args.seed)
 
     with Phase("card"):
         card = subprocess.run(
@@ -1448,13 +1494,27 @@ def main() -> int:
     if args.extraction:
         kernels = [{"name": "bin_topk"}, {"name": "bin_topk_f32"}]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as root:
-            host = ExtractionHost(Path(root), card)
+            host = extraction_host(Path(root), card)
             try:
                 with Phase(EXTRACTION_PHASE):
                     built = run_extraction_chain(device, kernels, card, repo, Path(root), host)
                 built["store"].close()
             finally:
                 host.stop()
+        log(json.dumps({"kernels": kernels}))
+        log(json.dumps(device_record()))
+        return 0
+
+    if args.tools:
+        kernels = [{"name": "bin_topk_f32"}, {"name": "bin_topk_int8"}]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as root:
+            with Phase("6. index of the 200k chain in the corpus's order and its quality"):
+                built = embed_chain(device, repo, Path(root), card)
+                engine = run_quality_chain(device, kernels, card, repo, built)
+            with Phase(TOOLS_PHASE):
+                run_tools(engine, built, device, kernels, card, repo,
+                          Path(root), args.tools_dump)
+            engine.store.close()
         log(json.dumps({"kernels": kernels}))
         log(json.dumps(device_record()))
         return 0
@@ -1489,23 +1549,31 @@ def main() -> int:
         run_pipelined_path(device, kernels, card)
 
     if not args.kernels:
-        with Phase("serving paths at full width"):
-            run_service(device, kernels, card)
-        with Phase("5. training at full width"):
-            run_training(device, kernels, card)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as root:
-            # Phase 8's host stages run in a child beside phase 7's training.
-            host = ExtractionHost(Path(root), card)
+            # Phase 7's training and phase 8's host stages run in children
+            # beside the other phases: both leave the card mostly idle.
+            chain = ChildPhase(Path(root), "training_chain", "--training-chain-child",
+                               "--card", card, "--seed", str(args.seed))
+            host = extraction_host(Path(root), card)
             try:
-                with Phase("7. training end to end at the 20k chain"):
-                    run_training_chain(device, kernels, card, repo, args.seed)
+                with Phase("serving paths at full width"):
+                    run_service(device, kernels, card)
+                with Phase("5. training at full width"):
+                    run_training(device, kernels, card)
                 with Phase(EXTRACTION_PHASE):
                     built = run_extraction_chain(device, kernels, card, repo, Path(root), host)
                 with Phase("6. index of the 200k chain in the corpus's order and its quality"):
-                    run_quality_chain(device, kernels, card, repo, built)
+                    engine = run_quality_chain(device, kernels, card, repo, built)
+                with Phase(TOOLS_PHASE):
+                    run_tools(engine, built, device, kernels, card, repo,
+                              Path(root), args.tools_dump)
+                engine.store.close()
                 built["store"].close()
+                with Phase("7. training end to end at the 20k chain (its child, waited for)"):
+                    f32_row.update(chain.result())
             finally:
                 host.stop()
+                chain.stop()
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps(device_record()))
@@ -3088,26 +3156,37 @@ def eval_arm(engine, corpus, batches: int, point: str | None) -> tuple[dict, flo
     return metrics, seconds, launched.counts
 
 
+def hold_rows(label, got: dict, want: dict, keys, misses: list, card: str, note: str = "") -> None:
+    """Logs ``got`` beside the committed row ``want`` key by key and adds
+    to ``misses`` each share beyond CHAIN_QUERY_SLACK queries (MRR beyond
+    CHAIN_MRR_SLACK)."""
+    n_got = got.get("n", got.get("n_queries"))
+    n_want = want.get("n", want.get("n_queries", n_got))
+    parts = []
+    for key in keys:
+        if key.startswith("mrr"):
+            diff = got[key] - want[key]
+            parts.append(f"{key} {got[key]:.4f} ({want[key]:.4f}, {diff:+.4f})")
+            if abs(diff) > CHAIN_MRR_SLACK + 1e-9:
+                misses.append(f"{label} {key}")
+        else:
+            diff = round(got[key] * n_got) - round(want[key] * n_want)
+            parts.append(f"{key} {got[key]:.4f} ({want[key]:.4f}, {diff:+d} queries)")
+            if abs(diff) > CHAIN_QUERY_SLACK:
+                misses.append(f"{label} {key}")
+    if abs(n_got - n_want) > CHAIN_QUERY_SLACK:
+        misses.append(f"{label} n")
+    log(f"  {label}{note} over {n_got} (record {n_want}): {'; '.join(parts)}; {card}")
+
+
 def hold_to_reference(label, metrics, reference, seconds, counts, batches, card) -> list[str]:
     """Logs ``metrics`` beside the committed JAX row and returns the keys
     beyond CHAIN_QUERY_SLACK queries (CHAIN_MRR_SLACK for MRR)."""
-    n = metrics["n_queries"]
-    lines, misses = [], []
-    for key, want in reference.items():
-        got = metrics[key]
-        if key.startswith("recall"):
-            diff = round(got * n) - round(want * n)
-            lines.append(f"{key} {got:.4f} (JAX {want:.4f}, {diff:+d} queries)")
-            if abs(diff) > CHAIN_QUERY_SLACK:
-                misses.append(f"{label} {key}")
-        else:
-            lines.append(f"{key} {got:.4f} (JAX {want:.4f}, {got - want:+.4f})")
-            if abs(got - want) > CHAIN_MRR_SLACK + 1e-9:
-                misses.append(f"{label} {key}")
-    log(
-        f"  {label} over {n} queries at rerank_top {CHAIN_RERANK_TOP}: "
-        f"{'; '.join(lines)}; eval {seconds:.1f} s; K1-f32 launches "
-        f"{counts['bin_topk']} ({batches} batches); {card}"
+    misses: list[str] = []
+    hold_rows(
+        label, metrics, reference, reference, misses, card,
+        note=f" at rerank_top {CHAIN_RERANK_TOP} (eval {seconds:.1f} s; K1-f32 launches "
+        f"{counts['bin_topk']}, {batches} batches; against JAX)",
     )
     return misses
 
@@ -3448,7 +3527,6 @@ def run_quality_chain(device, kernels, card, repo: Path, built: dict) -> None:
     del int8_engine, int8_reranker
     with Phase("6b. the entry points as processes over the chain's artifacts"):
         run_entry_points(work, corpus, embedder_dir, reranker_dir, repo, device, card)
-    store.close()
     metrics, eval_s, counts = arms["full_pipeline"]
     misses = hold_to_reference("quality", metrics, CHAIN_REFERENCE, eval_s, counts, batches, card)
     log("  " + json.dumps({"quality_chain": metrics, "seconds": {
@@ -3486,6 +3564,343 @@ def run_quality_chain(device, kernels, card, repo: Path, built: dict) -> None:
     for forbidden in ("jax", "lean_explore_tpu"):
         if forbidden in sys.modules:
             raise AssertionError(f"{forbidden} was imported on the index-build path")
+    return engine
+
+
+def embed_chain(device, repo: Path, root: Path, card: str) -> dict:
+    """What phase 8 hands phase 6, without the extraction pipeline (for
+    ``--tools``): the chain's corpus, its float32 embedder on the card and
+    every declaration's ``embed_sync`` row by name, in the stage's batches."""
+    from lean_explore_tpu_torch.evaluation import EMBED_BATCH
+    from lean_explore_tpu_torch.train.synthetic import make_corpus
+    from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient
+
+    embedder_dir, _ = chain_checkpoints(repo)
+    corpus = make_corpus(**CHAIN_CORPUS)
+    embedder = EmbeddingClient(
+        str(embedder_dir), max_length=CHAIN_EMB_MAX_LENGTH, batch_size=EMBED_BATCH,
+        dtype=torch.float32, device=device,
+    )
+    docs = [d.informalization for d in corpus.declarations]
+    t = time.perf_counter()
+    rows = np.concatenate([
+        embedder.embed_sync(docs[start : start + EMBED_BATCH])
+        for start in range(0, len(docs), EMBED_BATCH)
+    ])
+    embed_s = time.perf_counter() - t
+    log(f"  embed_sync of the chain's {len(docs)} documents {embed_s:.1f} s "
+        f"({len(docs) / embed_s:.1f} docs/s); {card}")
+    (root / "extraction").mkdir()
+    return dict(
+        corpus=corpus, embedder=embedder, seconds={"embed": embed_s},
+        embeddings={d.name: r for d, r in zip(corpus.declarations, rows)},
+        extraction=root / "extraction",
+    )
+
+
+# ----------------------------------------------------------------------
+# Phase 10: the quality and cascade-calibration tools at full width
+# ----------------------------------------------------------------------
+
+TOOLS_PHASE = "10. the quality and cascade-calibration tools on the committed checkpoints"
+# 10a, on phase 6's engine: the 192 queries of both cascade records
+# (make_corpus draws its eval picks after every declaration, so these
+# search phase 6's declarations), the calibration's and the coverage
+# script's caps, each scored once, the calibration's keep and floor.
+TOOLS_N_QUERIES = 192
+TOOLS_CALIBRATION = CHAIN_DIR / "cascade_calibration.json"
+TOOLS_COVERAGE = CHAIN_DIR / "prescreen_coverage.json"
+TOOLS_CAPS = (8, 12, 16, 24, 32, 48, 64, 96)
+TOOLS_RECOMMENDED_CAP = 48
+# The kept divergence ROADMAP C11: at cap 24 the TPU record keeps the
+# full-length top-3 in 39 groups, the card in 36; the card's, the port's
+# and the JAX client's float32 rankings agree on all 192 groups
+# (scripts/compare_torch_cap_rankings.py), so that row is held to the JAX
+# float32 row of this record and logged beside the TPU row.
+TOOLS_CAP_DIVERGENCE = CHAIN_DIR / "cascade_calibration_cap24_divergence.json"
+# 10b: the committed 20k chain (runs/embedder, runs/reranker) at the
+# records' arguments and lengths (scripts/eval_query_classes.py,
+# scripts/measure_int8_effects.py).
+TOOLS_20K_DIR = Path("runs")
+TOOLS_20K_CORPUS = dict(n_decls=20_000, n_concepts=1200, n_eval=512, seed=0)
+TOOLS_20K_EMB_MAX_LENGTH, TOOLS_20K_RR_MAX_LENGTH = 64, 128
+TOOLS_QUERY_CLASSES = TOOLS_20K_DIR / "query_classes" / "eval.json"
+TOOLS_INT8_EFFECTS = TOOLS_20K_DIR / "int8_effects.json"
+TOOLS_N_PER_CLASS, TOOLS_INT8_QUERIES = 128, 128
+TOOLS_DENSE_RECALL_TOL = 0.01
+# ROADMAP C11 too: the rows whose TPU records the JAX scripts' own float32
+# runs on the CPU miss as the card does (runs/jax_f32_cpu: the scripts at
+# their defaults with --platform cpu); each is held to that run and logged
+# beside its TPU row.
+TOOLS_F32_QUERY_CLASSES = Path("runs") / "jax_f32_cpu" / "query_classes_eval.json"
+TOOLS_F32_INT8_EFFECTS = Path("runs") / "jax_f32_cpu" / "int8_effects.json"
+TOOLS_F32_ROWS = {("semantic", "full_pipeline"), ("dense", "fused_f32_vs_exact")}
+
+
+def twenty_k_checkpoints(repo: Path) -> tuple[Path, Path]:
+    """The committed 20k chain's embedder and reranker directories; raises
+    when either is incomplete."""
+    dirs = tuple(repo / TOOLS_20K_DIR / m / "checkpoint" for m in ("embedder", "reranker"))
+    for d in dirs:
+        for name in ("config.json", "model.safetensors", "tokenizer.json"):
+            if not (d / name).is_file():
+                raise FileNotFoundError(f"phase 10 needs the committed checkpoint file {d / name}")
+    return dirs
+
+
+def run_tools_calibration(engine, reranker, kernels, card, repo: Path, dump: Path | None,
+                          eval_queries=None) -> list:
+    """10a on phase 6's engine: one capture of the records' 192 queries
+    (``eval_queries`` when phase 8's host child made them, else made
+    here; K1-f32 once a batch of 64 and no other kernel), every cap of
+    TOOLS_CAPS scored once, and from that one scoring the calibration's
+    rows (held to runs/scale200k/cascade_calibration.json, which
+    recommends cap 48) and the coverage's rows (held to
+    runs/scale200k/prescreen_coverage.json). Returns the misses."""
+    from lean_explore_tpu_torch import evaluation
+    from lean_explore_tpu_torch.train.synthetic import make_corpus
+
+    calibration = json.loads((repo / TOOLS_CALIBRATION).read_text())
+    coverage = json.loads((repo / TOOLS_COVERAGE).read_text())
+    keep, floor = calibration["task"]["keep"], calibration["task"]["top1_floor"]
+    t = time.perf_counter()
+    if eval_queries is None:
+        eval_queries = make_corpus(**{**CHAIN_CORPUS, "n_eval": TOOLS_N_QUERIES}).eval_queries
+    corpus_s = time.perf_counter() - t
+    queries = [q for q, _ in eval_queries]
+    with CountLaunches() as launched:
+        t = time.perf_counter()
+        groups = evaluation.capture_rerank_groups(engine, queries, CHAIN_RERANK_TOP, batch=64)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t
+    batches = -(-len(queries) // 64)
+    expect_launches("10a capture", launched.counts, "bin_topk", batches)
+    if launched.counts["bin_topk"] != batches:
+        raise AssertionError(f"10a: K1-f32 launched {launched.counts['bin_topk']} times, not {batches}")
+    with CountLaunches() as scoring:
+        scored = evaluation.score_caps(reranker, groups, TOOLS_CAPS)
+    if any(scoring.counts.values()):
+        raise AssertionError(f"10a: kernels launched while scoring the caps: {scoring.counts}")
+    cal_rows = {
+        cap: evaluation.calibration_row(groups, scored[cap][0], keep, scored[cap][1])
+        for cap in TOOLS_CAPS
+    }
+    target_by_query = dict(eval_queries)
+    cov_rows = {
+        cap: evaluation.coverage_row(
+            evaluation.gold_stage1_ranks(groups, scored[cap][0], target_by_query), scored[cap][1]
+        )
+        for cap in TOOLS_CAPS
+    }
+    record_caps = [int(c) for c in calibration["caps"]]
+    recommended = evaluation.recommended_cap({c: cal_rows[c] for c in record_caps}, floor)
+    log(
+        f"  {TOOLS_N_QUERIES} queries {corpus_s:.1f} s; capture of {len(groups)} "
+        f"groups {capture_s:.1f} s, K1-f32 launches {launched.counts['bin_topk']} "
+        f"({batches} batches); {len(TOOLS_CAPS)} caps scored once, "
+        f"{sum(sc for _, sc in scored.values()):.1f} s; {card}"
+    )
+    divergence = json.loads((repo / TOOLS_CAP_DIVERGENCE).read_text())["caps"]
+    misses: list[str] = []
+    for cap in record_caps:
+        keys = ("containment_top1", "containment_top3")
+        if str(cap) not in divergence:
+            hold_rows(f"calibration cap {cap}", cal_rows[cap], calibration["caps"][str(cap)],
+                      keys, misses, card)
+            continue
+        kept = divergence[str(cap)]
+        differ = [
+            i for i, (g, s) in enumerate(zip(groups, scored[cap][0]))
+            if {"full_top3": evaluation.ranking(g.scores)[:3],
+                "keep_set": sorted(evaluation.ranking(s)[:keep])} != kept["jax_rankings"][i]
+        ]
+        hold_rows(f"calibration cap {cap}", cal_rows[cap], kept["jax_f32_cpu_row"], keys,
+                  misses, card, " against JAX f32 on the CPU (ROADMAP C11)")
+        hold_rows(f"calibration cap {cap}", cal_rows[cap], calibration["caps"][str(cap)], keys,
+                  [], card, " against its TPU row, logged")
+        log(f"  calibration cap {cap}: groups whose full top-3 or keep set differ from the "
+            f"committed JAX float32 rankings: {differ}")
+    for cap in (int(c) for c in coverage["caps"]):
+        hold_rows(f"coverage cap {cap}", cov_rows[cap], coverage["caps"][str(cap)],
+                  ("top8", "top12", "top16", "top25"), misses, card)
+    log(f"  recommended cap {recommended} (record {calibration['recommended_cap']}, "
+        f"floor {floor}, keep {keep}); cap 12 {json.dumps(cal_rows[12])}, "
+        f"cap 96 coverage {json.dumps(cov_rows[96])}")
+    if recommended != TOOLS_RECOMMENDED_CAP:
+        misses.append(f"recommended cap {recommended}")
+    log("  " + json.dumps({"tools_calibration": {str(c): r for c, r in cal_rows.items()},
+                           "tools_coverage": {str(c): r for c, r in cov_rows.items()},
+                           "recommended_cap": recommended}))
+    if dump is not None:
+        dump.mkdir(parents=True, exist_ok=True)
+        (dump / "tools_groups.json").write_text(json.dumps({
+            "queries": queries, "targets": [t for _, t in eval_queries],
+            "keep": keep, "rr_max_length": CHAIN_RR_MAX_LENGTH,
+            "device": torch.cuda.get_device_name(0),
+            "groups": [g._asdict() for g in groups],
+            "cap_scores": {str(c): scored[c][0] for c in TOOLS_CAPS},
+        }))
+    by_name = {k["name"]: k for k in kernels}
+    by_name["bin_topk_f32"]["tools_capture_launches"] = launched.counts["bin_topk"]
+    return misses
+
+
+def hold_k2_to_twin(queries, corpus_mat) -> int:
+    """K2's carry over the quantized corpus equals its plain twin's bit for
+    bit (launches here do not count); returns the rows compared."""
+    from lean_explore_tpu_torch.index.dense import ROW_ALIGN
+    from lean_explore_tpu_torch.ops import bin_topk_int8 as K8
+    from lean_explore_tpu_torch.ops.bin_topk import steal_bits_for
+    from lean_explore_tpu_torch.ops.dense import serving_bins
+    from lean_explore_tpu_torch.ops.quant import quantize_rows_device
+
+    n = corpus_mat.shape[0]
+    codes, scales = quantize_rows_device(
+        torch.nn.functional.pad(corpus_mat, (0, 0, 0, (-n) % ROW_ALIGN))
+    )
+    q_codes, q_scales = quantize_rows_device(queries)
+    bins = serving_bins(queries.shape[0], codes.shape[0])
+    got = K8.bin_topk_int8_carry(q_codes, q_scales, codes, scales, n, bins)
+    want = K8.bin_topk_int8_carry_plain(
+        q_codes, q_scales, codes, scales, n, bins, steal_bits_for(codes.shape[0], bins)
+    )
+    if not torch.equal(got, want):
+        raise AssertionError(f"10b: K2's carry differs from its twin at {(got != want).sum()} places")
+    return codes.shape[0]
+
+
+def run_tools_20k(device, kernels, card, repo: Path, root: Path) -> list:
+    """10b: the committed 20k chain's index built on the card at the
+    records' lengths; the query classes in each configuration and the
+    int8 effects, each held to its record. Returns the misses."""
+    from lean_explore_tpu_torch import evaluation
+    from lean_explore_tpu_torch.train.synthetic import make_corpus, make_name_queries
+    from lean_explore_tpu_torch.util.reranker_client import RerankerClient
+
+    embedder_dir, reranker_dir = twenty_k_checkpoints(repo)
+    classes = json.loads((repo / TOOLS_QUERY_CLASSES).read_text())["results"]
+    int8_record = json.loads((repo / TOOLS_INT8_EFFECTS).read_text())
+    f32_classes = json.loads((repo / TOOLS_F32_QUERY_CLASSES).read_text())["results"]
+    f32_int8 = json.loads((repo / TOOLS_F32_INT8_EFFECTS).read_text())
+    t = time.perf_counter()
+    corpus = make_corpus(**TOOLS_20K_CORPUS)
+    embedder, reranker = evaluation.float32_clients(
+        embedder_dir, reranker_dir, TOOLS_20K_EMB_MAX_LENGTH, TOOLS_20K_RR_MAX_LENGTH, device
+    )
+    work = root / "tools_20k"
+    with CountLaunches() as building:
+        store, built_s = evaluation.build_index(corpus, embedder, work)
+    engine, load_s = evaluation.open_engine(work, store, embedder, reranker, device)
+    build_s = time.perf_counter() - t
+    if any(building.counts.values()):
+        raise AssertionError(f"10b: kernels launched while building the index: {building.counts}")
+    log(
+        f"  20k index on the card {build_s:.1f} s (embed {built_s['embed']:.1f} s, "
+        f"{built_s['embed_docs_per_s']:.1f} docs/s; artifacts {built_s['build']:.1f} s; "
+        f"load {load_s:.1f} s); {card}"
+    )
+    sets = {
+        **make_name_queries(corpus, np.random.default_rng(TOOLS_20K_CORPUS["seed"] + 3),
+                            n_per_class=TOOLS_N_PER_CLASS),
+        "semantic": corpus.eval_queries,
+    }
+    misses: list[str] = []
+    metric_keys = ("recall_at_1", "recall_at_10", "mrr_at_10")
+    launches = 0
+    for qclass, labeled in sets.items():
+        configs = ("full_pipeline",) if qclass == "semantic" else tuple(evaluation.QUERY_CLASS_CONFIGS)
+        for config in configs:
+            with CountLaunches() as launched:
+                row = evaluation.evaluate_query_classes(
+                    engine, {qclass: labeled}, CHAIN_RERANK_TOP, configs=(config,)
+                )[qclass][config]
+            batches = -(-len(labeled) // 64) if config != "bm25_only" else 0
+            if config == "bm25_only":
+                if any(launched.counts.values()):
+                    raise AssertionError(f"10b {qclass}/{config}: kernels launched {launched.counts}")
+            else:
+                expect_launches(f"10b {qclass}/{config}", launched.counts, "bin_topk", batches)
+                if launched.counts["bin_topk"] != batches:
+                    raise AssertionError(
+                        f"10b {qclass}/{config}: K1-f32 launched {launched.counts['bin_topk']} "
+                        f"times, not {batches}"
+                    )
+            launches += launched.counts["bin_topk"]
+            note = f" ({row['seconds']} s, K1-f32 {launched.counts['bin_topk']})"
+            if (qclass, config) in TOOLS_F32_ROWS:
+                hold_rows(f"{qclass}/{config}", row, f32_classes[qclass][config], metric_keys,
+                          misses, card, note + " against JAX f32 on the CPU (ROADMAP C11)")
+                hold_rows(f"{qclass}/{config}", row, classes[qclass][config], metric_keys, [],
+                          card, " against its TPU row, logged")
+            else:
+                hold_rows(f"{qclass}/{config}", row, classes[qclass][config], metric_keys,
+                          misses, card, note)
+    # The int8 effects on the same index: its float32 rows, the record's
+    # 128 queries, the float32 reranker beside the W8A8 one.
+    dense = engine._artifacts.dense
+    corpus_mat = dense.embeddings[: dense.n]
+    q_vecs = embedder.embed_device(
+        [q for q, _ in corpus.eval_queries[:TOOLS_INT8_QUERIES]], is_query=True
+    )
+    q8 = RerankerClient(
+        str(reranker_dir), max_length=TOOLS_20K_RR_MAX_LENGTH, dtype="int8", device=device,
+    )
+    t = time.perf_counter()
+    with CountLaunches() as launched:
+        recall = evaluation.dense_int8_recall(corpus_mat, q_vecs)
+        drift = evaluation.reranker_int8_drift(
+            reranker, q8, *evaluation.direct_eval_groups(corpus, TOOLS_INT8_QUERIES,
+                                                         TOOLS_20K_CORPUS["seed"])
+        )
+    int8_s = time.perf_counter() - t
+    expect_launches("10b int8 effects", launched.counts, "bin_topk_int8", 1)
+    rows = hold_k2_to_twin(q_vecs, corpus_mat)
+    want_recall = dict(int8_record["dense_trained_geometry"]["recall_at_10"])
+    f32_recall = f32_int8["dense_trained_geometry"]["recall_at_10"]
+    for key in want_recall:
+        if ("dense", key) in TOOLS_F32_ROWS:
+            want_recall[key] = f32_recall[key]
+    for key, got in recall["recall_at_10"].items():
+        if abs(got - want_recall[key]) > TOOLS_DENSE_RECALL_TOL + 1e-9:
+            misses.append(f"int8 dense {key}")
+    want_drift = int8_record["reranker_int8_drift"]
+    hold_rows("int8 reranker", drift, want_drift,
+              ("recall_at_1_of_50_f32", "recall_at_1_of_50_int8", "top1_agreement"), misses, card)
+    log(
+        f"  int8 effects {int8_s:.1f} s: dense recall@10 {json.dumps(recall['recall_at_10'])} "
+        f"(held to {json.dumps(want_recall)}, tolerance {TOOLS_DENSE_RECALL_TOL}; TPU record "
+        f"{json.dumps(int8_record['dense_trained_geometry']['recall_at_10'])}, JAX f32 on the "
+        f"CPU {json.dumps(f32_recall)}, kept divergence ROADMAP C11); K2 launches "
+        f"{launched.counts['bin_topk_int8']}, its carry over {rows} rows equal to its twin's; "
+        f"P(true) drift mean {drift['p_true_drift_mean']} max {drift['p_true_drift_max']} "
+        f"(record {want_drift['p_true_drift_mean']}, {want_drift['p_true_drift_max']}); {card}"
+    )
+    log("  " + json.dumps({"tools_int8_effects": {"dense_trained_geometry": recall,
+                                                  "reranker_int8_drift": drift}}))
+    store.close()
+    by_name = {k["name"]: k for k in kernels}
+    by_name["bin_topk_f32"]["tools_20k_launches"] = launches
+    by_name["bin_topk_int8"]["tools_int8_launches"] = launched.counts["bin_topk_int8"]
+    return misses
+
+
+def run_tools(engine, built: dict, device, kernels, card, repo: Path, root: Path,
+              dump: Path | None) -> None:
+    """Phase 10: 10a on phase 6's engine, then 10b; fails on any miss
+    after both have logged their rows."""
+    with Phase("10a. cascade calibration and prescreen coverage on phase 6's engine"):
+        misses = run_tools_calibration(engine, engine.reranker_client, kernels, card, repo,
+                                       dump, built.get("tools_eval_queries"))
+    with Phase("10b. query classes and int8 effects on the committed 20k chain"):
+        misses += run_tools_20k(device, kernels, card, repo, root)
+    if misses:
+        raise AssertionError(
+            f"phase 10: {misses} beyond {CHAIN_QUERY_SLACK} queries (MRR {CHAIN_MRR_SLACK}, "
+            f"dense recall {TOOLS_DENSE_RECALL_TOL}) of the committed records"
+        )
+    for forbidden in ("jax", "lean_explore_tpu"):
+        if forbidden in sys.modules:
+            raise AssertionError(f"{forbidden} was imported on the tools' path")
 
 
 # ----------------------------------------------------------------------
@@ -3843,6 +4258,17 @@ def run_training_chain(device, kernels, card, repo: Path, seed: int) -> None:
             raise AssertionError(f"{forbidden} was imported on the training chain")
 
 
+def run_training_chain_child(root: Path, device, card: str, repo: Path, seed: int) -> int:
+    """Phase 7's ``ChildPhase``: phase 7, its K1-f32 eval launches
+    written to ROOT/training_chain.json."""
+    kernels = [{"name": "bin_topk_f32"}]
+    with Phase("7. training end to end at the 20k chain"):
+        run_training_chain(device, kernels, card, repo, seed)
+    launches = kernels[0]["training_chain_eval_launches"]
+    (root / "training_chain.json").write_text(json.dumps({"training_chain_eval_launches": launches}))
+    return 0
+
+
 # ----------------------------------------------------------------------
 # Phase 8: the extraction pipeline, from doc-gen4's output to a served query
 # ----------------------------------------------------------------------
@@ -4142,26 +4568,31 @@ def extraction_host_stages(repo: Path, root: Path, card: str) -> dict:
     if informalizer.calls != len(corpus.declarations):
         raise AssertionError(f"informalized {informalizer.calls} of {len(corpus.declarations)}")
     rates = check_bpe_reader(corpus, repo, card)
+    t = time.perf_counter()
+    tools_queries = make_corpus(**{**CHAIN_CORPUS, "n_eval": TOOLS_N_QUERIES}).eval_queries
+    log(f"  phase 10a's {TOOLS_N_QUERIES} queries (make_corpus at the chain's arguments) "
+        f"in {time.perf_counter() - t:.1f} s")
     return {"extraction": str(extraction), "seconds": seconds, "http_seconds": http_s,
-            "tokenizers": rates}
+            "tokenizers": rates, "tools_eval_queries": tools_queries}
 
 
-class ExtractionHost:
-    """Phase 8's host stages in a child process (``chip_smoke.py
-    --extraction-host ROOT``), started before phase 7 so that they run
-    beside its training: they load one core of the host and nothing of the
-    card. ``result`` waits for the child, logs what it printed and
-    returns what it wrote; a child that fails or hangs fails the phase,
+class ChildPhase:
+    """Part of a phase in a child process of this script (``chip_smoke.py
+    FLAG ROOT ...``), started before the phases it runs beside: phase 7
+    (``--training-chain-child``, host-bound training, the device busy a
+    fifth of a step) and phase 8's host stages (``--extraction-host``, one
+    core of the host and nothing of the card). ``result`` waits for the
+    child, logs its phase and indented lines and returns the record it
+    wrote to ROOT/NAME.json; a child that fails or hangs fails the phase,
     and a child still running when the parent stops is killed."""
 
-    TIMEOUT_S = 900
+    TIMEOUT_S = 1000
 
-    def __init__(self, root: Path, card: str):
-        self.root, self.log = root, root / "extraction_host.log"
+    def __init__(self, root: Path, name: str, flag: str, *args: str):
+        self.root, self.name, self.log = root, name, root / f"{name}.log"
         with open(self.log, "w") as out:
             self.proc = subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--extraction-host", str(root),
-                 "--card", card],
+                [sys.executable, str(Path(__file__).resolve()), flag, str(root), *args],
                 stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent,
             )
 
@@ -4169,16 +4600,16 @@ class ExtractionHost:
         try:
             returncode = self.proc.wait(timeout=self.TIMEOUT_S)
         except subprocess.TimeoutExpired as error:
-            raise AssertionError(f"phase 8's host stages hung: {self.log.read_text()[-3000:]}") from error
+            raise AssertionError(f"child {self.name} hung: {self.log.read_text()[-3000:]}") from error
         finally:
             self.stop()
         text = self.log.read_text()
         for line in text.splitlines():
-            if line.startswith("  "):
+            if line.startswith(("  ", "[phase]")):
                 log(line)
         if returncode != 0:
-            raise AssertionError(f"phase 8's host stages exited {returncode}: {text[-3000:]}")
-        return json.loads((self.root / "extraction_host.json").read_text())
+            raise AssertionError(f"child {self.name} exited {returncode}: {text[-3000:]}")
+        return json.loads((self.root / f"{self.name}.json").read_text())
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -4186,8 +4617,12 @@ class ExtractionHost:
             self.proc.wait()
 
 
+def extraction_host(root: Path, card: str) -> ChildPhase:
+    return ChildPhase(root, "extraction_host", "--extraction-host", "--card", card)
+
+
 def run_extraction_host(root: Path, card: str) -> int:
-    """The child of ``ExtractionHost``: the host stages, their record
+    """Phase 8's host ``ChildPhase``: the host stages, their record
     written to ROOT/extraction_host.json."""
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
@@ -4197,7 +4632,7 @@ def run_extraction_host(root: Path, card: str) -> int:
 
 
 def run_extraction_chain(device, kernels, card, repo: Path, root: Path,
-                         host: ExtractionHost) -> dict:
+                         host: ChildPhase) -> dict:
     """Phase 8 in ``root``: the 200k chain built by the port's extraction
     pipeline, from doc-gen4's output (written here) through parse and
     informalize (``host``, the child process) and then embed, on the card,
@@ -4235,7 +4670,7 @@ def run_extraction_chain(device, kernels, card, repo: Path, root: Path,
         f"{stage} {s:.1f} ({n / s:.1f})" for stage, s in seconds.items())
         + f"; {n} declarations, the store equal to make_corpus's, manifest n_embedded "
         f"{manifest['n_embedded']}; parse and informalize in a child process beside "
-        f"phase 7; {card}")
+        f"phases 4 and 5; {card}")
 
     # 8c. The quality eval over the pipeline's artifacts, f32 corpus.
     store = DeclarationStore(extraction / "declarations.db")
@@ -4306,7 +4741,8 @@ def run_extraction_chain(device, kernels, card, repo: Path, root: Path,
         if forbidden in sys.modules:
             raise AssertionError(f"{forbidden} was imported on the extraction path")
     return dict(corpus=corpus, extraction=extraction, store=store, seconds=seconds,
-                embeddings=embeddings, embedder=embedder)
+                embeddings=embeddings, embedder=embedder,
+                tools_eval_queries=[tuple(pair) for pair in hosted["tools_eval_queries"]])
 
 
 # ----------------------------------------------------------------------

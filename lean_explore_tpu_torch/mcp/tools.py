@@ -11,6 +11,8 @@ import logging
 from lean_explore_tpu_torch.mcp.app import get_backend_service, mcp_app
 from lean_explore_tpu_torch.models.search_types import (
     SearchResult,
+    SearchResultSummary,
+    SearchSummaryResponse,
     extract_bold_description,
 )
 
@@ -108,20 +110,22 @@ async def search(query, limit=10, rerank_top=50, packages=None):
 )
 async def search_summary(query, limit=10, rerank_top=50, packages=None):
     response = await _backend_search(query, limit, rerank_top, packages)
-    summary = {
-        "query": response.query,
-        "results": [
-            {
-                "id": r.id,
-                "name": r.name,
-                "description": extract_bold_description(r.informalization),
-            }
+    summary = SearchSummaryResponse(
+        query=response.query,
+        results=[
+            SearchResultSummary(
+                id=r.id,
+                name=r.name,
+                description=extract_bold_description(r.informalization),
+            )
             for r in response.results
         ],
-        "count": response.count,
-        "processing_time_ms": response.processing_time_ms,
-    }
-    return {k: v for k, v in summary.items() if v is not None}
+        count=response.count,
+        processing_time_ms=response.processing_time_ms,
+    )
+    # Only the envelope drops its None fields: a result without a
+    # description keeps "description": null, as the JAX tool's dict does.
+    return {k: v for k, v in summary.model_dump().items() if v is not None}
 
 
 def _field_tool(tool_name: str, field: str, description: str):

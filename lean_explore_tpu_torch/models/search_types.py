@@ -52,6 +52,25 @@ class _Dumpable:
 
 
 @dataclasses.dataclass(slots=True)
+class SearchResultSummary(_Dumpable):
+    """Slim result (id, name, short description) for token-frugal MCP output."""
+
+    id: int
+    name: str
+    description: str | None
+
+
+@dataclasses.dataclass(slots=True)
+class SearchSummaryResponse(_Dumpable):
+    """Envelope for slim search results."""
+
+    query: str
+    results: list[SearchResultSummary]
+    count: int
+    processing_time_ms: int | None = None
+
+
+@dataclasses.dataclass(slots=True)
 class SearchResult(_Dumpable):
     """One Lean declaration returned from search (full fields)."""
 

@@ -38,18 +38,19 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from lean_explore_tpu_torch.evaluation import evaluate_engine, guard_store_vocab  # noqa: E402
-from lean_explore_tpu_torch.extract.embeddings import generate_embeddings  # noqa: E402
-from lean_explore_tpu_torch.extract.index import build_indices  # noqa: E402
-from lean_explore_tpu_torch.index.artifacts import load_index_artifacts  # noqa: E402
+from lean_explore_tpu_torch.evaluation import (  # noqa: E402
+    CASCADE_ENV,
+    EMBED_BATCH,
+    build_index,
+    evaluate_engine,
+    guard_store_vocab,
+    open_engine,
+)
 from lean_explore_tpu_torch.models.store import DeclarationStore  # noqa: E402
-from lean_explore_tpu_torch.search.engine import SearchEngine  # noqa: E402
 from lean_explore_tpu_torch.train.synthetic import make_corpus  # noqa: E402
 from lean_explore_tpu_torch.util.embedding_client import EmbeddingClient  # noqa: E402
 from lean_explore_tpu_torch.util.reranker_client import RerankerClient  # noqa: E402
 
-EMBED_BATCH = 256
-CASCADE_ENV = "LEAN_EXPLORE_RERANK_CASCADE"
 # eval_cascade.py's default sweep, spanning the coverage cliff measured on
 # the 22-word corpus.
 DEFAULT_POINTS = ("32,16", "32,8", "24,12", "16,12", "12,8", "12,25")
@@ -117,42 +118,6 @@ def evaluate_arms(engine, labeled, rerank_top: int, points) -> tuple[dict, dict]
     finally:
         os.environ.pop(CASCADE_ENV, None)
     return results, seconds
-
-
-def build_index(corpus, embedder, work: Path) -> tuple[DeclarationStore, dict]:
-    """Store, embeddings and artifacts of ``corpus`` in ``work``; returns
-    the open store and the seconds (and docs/s) of each stage."""
-    seconds = {}
-    t = time.perf_counter()
-    (work / "store").mkdir(parents=True, exist_ok=True)
-    store = DeclarationStore(work / "store" / "declarations.db", create=True)
-    store.insert_many(corpus.declarations)
-    seconds["store"] = time.perf_counter() - t
-    guard_store_vocab(store, embedder.tokenizer)
-
-    t = time.perf_counter()
-    n = generate_embeddings(store, client=embedder, batch_size=EMBED_BATCH, use_cache=False)
-    if embedder.device.type == "cuda":
-        torch.cuda.synchronize(embedder.device)
-    seconds["embed"] = time.perf_counter() - t
-    seconds["embed_docs_per_s"] = n / seconds["embed"]
-
-    t = time.perf_counter()
-    build_indices(store, work)
-    seconds["build"] = time.perf_counter() - t
-    return store, seconds
-
-
-def open_engine(work: Path, store, embedder, reranker, device) -> tuple[SearchEngine, float]:
-    """A SearchEngine over the artifacts in ``work`` with a float32 corpus
-    on ``device``, and the seconds the load took."""
-    t = time.perf_counter()
-    artifacts = load_index_artifacts(work, dense_dtype="float32", device=device)
-    engine = SearchEngine(
-        work, store=store, artifacts=artifacts, embedding_client=embedder,
-        reranker_client=reranker, device=device,
-    )
-    return engine, time.perf_counter() - t
 
 
 def main(argv: list[str] | None = None) -> dict:

@@ -263,3 +263,80 @@ def test_use_local_data_resolves_as_jax(setup, tmp_path, monkeypatch):
     assert [[r.model_dump() for r in g.results] for g in got] == [
         [r.model_dump() for r in w.results] for w in want
     ]
+
+
+NAME_CONFIGS = {
+    "bm25_only": dict(dense_k=0, rerank_top=0),
+    "dense_only": dict(bm25_k=0, rerank_top=0),
+    "hybrid_no_rerank": dict(rerank_top=0),
+    "full_pipeline": dict(rerank_top=10),
+}
+
+
+@pytest.fixture(scope="module")
+def name_setup(tmp_path_factory):
+    """A small index of the committed 20k chain's regime (``make_corpus``
+    with its 1,200 concepts, embedded by the JAX package with the committed
+    runs/embedder checkpoint at length 64 and packed by its
+    ``build_index_artifacts``), both engines on it with the committed
+    float32 checkpoints (embedder length 64, reranker 128, as
+    scripts/eval_query_classes.py serves them), and the three name classes
+    of ``make_name_queries``."""
+    from lean_explore_tpu_torch.train.synthetic import make_corpus, make_name_queries
+
+    runs = REPO / "runs"
+    embed_dir, rerank_dir = runs / "embedder" / "checkpoint", runs / "reranker" / "checkpoint"
+    corpus = make_corpus(n_decls=150, n_concepts=1200, n_eval=8, seed=0)
+    data = tmp_path_factory.mktemp("torch_engine_names")
+    jax_embedder = JaxEmbedder(str(embed_dir), model_dir=embed_dir, max_length=64, dtype="float32")
+    vecs = jax_embedder.embed_sync([d.informalization for d in corpus.declarations])
+    store = DeclarationStore(data / "declarations.db", create=True)
+    store.insert_many([
+        Declaration(
+            name=d.name, module=d.module, source_text=d.source_text,
+            source_link=d.source_link, dependencies=d.dependencies,
+            informalization=d.informalization, informalization_embedding=v.tolist(),
+        )
+        for d, v in zip(corpus.declarations, vecs)
+    ])
+    build_index_artifacts(store, data)
+    store.close()
+    jax_engine = JaxEngine(
+        data, embedding_client=jax_embedder, dense_dtype="float32",
+        reranker_client=JaxReranker(
+            str(rerank_dir), model_dir=rerank_dir, dtype="float32", max_length=128
+        ),
+    )
+    engine = SearchEngine(
+        data, dense_dtype="float32", device="cpu",
+        embedding_client=EmbeddingClient(
+            str(embed_dir), model_dir=embed_dir, max_length=64, dtype=torch.float32,
+            device="cpu",
+        ),
+        reranker_client=RerankerClient(
+            str(rerank_dir), model_dir=rerank_dir, max_length=128, dtype=torch.float32,
+            device="cpu",
+        ),
+    )
+    classes = make_name_queries(corpus, np.random.default_rng(3), n_per_class=6)
+    return jax_engine, engine, classes
+
+
+@pytest.mark.parametrize("config", list(NAME_CONFIGS))
+@pytest.mark.parametrize("qclass", ["name_exact", "name_fragment", "name_typo"])
+def test_name_queries_same_results_as_jax(name_setup, qclass, config):
+    """Name search, the reference's headline use case: exact dotted names
+    (the raw BM25 index), spaced name fragments (the spaced index) and
+    names with one typo (the fuzzy-name boost), in each engine
+    configuration of scripts/eval_query_classes.py, give the JAX engine's
+    results: the same ids in the same order and the same payloads."""
+    jax_engine, engine, classes = name_setup
+    queries = [q for q, _ in classes[qclass]]
+    want = asyncio.run(jax_engine.search_batch(queries, limit=10, **NAME_CONFIGS[config]))
+    got = asyncio.run(engine.search_batch(queries, limit=10, **NAME_CONFIGS[config]))
+    assert [[r.model_dump() for r in g] for g in got] == [
+        [r.model_dump() for r in w] for w in want
+    ]
+    if config != "dense_only":
+        hits = sum(g[0].name == t for g, (_, t) in zip(got, classes[qclass]) if g)
+        assert hits >= len(queries) - 1, (qclass, config, hits)

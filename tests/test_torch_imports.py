@@ -24,7 +24,9 @@ same, and a third the extraction stages (a doc-gen4 database parsed,
 informalized through a stand-in client, the OpenRouter client built) and
 the byte-level BPE reader on the committed fixture, and a fourth the mesh
 package (``lean_explore_tpu_torch.parallel``: a sharded index by each
-method, the data-parallel scorer, a one-rank training mesh).
+method, the data-parallel scorer, a one-rank training mesh), and a fifth
+the library surface (every lazy name, a device trace) and the quality and
+calibration tools (scripts/*_torch_* of the JAX tools, at a tiny size).
 """
 
 import json
@@ -355,3 +357,78 @@ def test_parallel_imports_no_forbidden_module():
     assert proc.returncode == 0, proc.stderr[-3000:]
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert loaded == [], f"the port's parallel package imported {loaded}"
+
+
+TOOLS = r"""
+import importlib, json, sys, tempfile
+from pathlib import Path
+import torch
+
+import lean_explore_tpu_torch as pkg
+from lean_explore_tpu_torch.models import qwen3
+from lean_explore_tpu_torch.train import synthetic
+from lean_explore_tpu_torch.train.export import export_hf_checkpoint
+from lean_explore_tpu_torch.util import device_trace
+from chip_smoke import load_script
+
+resolved = [getattr(pkg, name) for name in pkg._LAZY]
+for sub in ("index", "models", "ops", "search", "util"):
+    module = importlib.import_module(f"lean_explore_tpu_torch.{sub}")
+    resolved += [getattr(module, name) for name in module._LAZY]
+assert len(resolved) == len(pkg._LAZY) + 32, len(resolved)
+tmp = Path(tempfile.mkdtemp())
+with device_trace(tmp / "trace"):
+    torch.ones(4).sum()
+assert list((tmp / "trace").glob("*.pt.trace.json"))
+
+corpus_args = ["--n-decls", "40", "--n-concepts", "20"]
+corpus = synthetic.make_corpus(n_decls=40, n_concepts=20, n_eval=4)
+model_dir = tmp / "model"
+synthetic.build_wordlevel_tokenizer(corpus.texts(), model_dir)
+vocab = json.loads((model_dir / "tokenizer.json").read_text())["model"]["vocab"]
+config = qwen3.Qwen3Config(
+    vocab_size=len(vocab), hidden_size=32, num_hidden_layers=1,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=8, intermediate_size=64,
+)
+export_hf_checkpoint(
+    qwen3.init_params(config, torch.Generator().manual_seed(0), device="cpu"), config, model_dir
+)
+models = ["--embedder", str(model_dir), "--reranker", str(model_dir)]
+cpu = ["--device", "cpu"]
+def run(name, argv):
+    return load_script(Path("."), name).main([*argv, *cpu])
+assert run("calibrate_torch_cascade", [*models, *corpus_args, "--n-queries", "4",
+    "--rerank-top", "5", "--caps", "4", "8", "--out", str(tmp / "c.json")])["caps"]
+assert run("measure_torch_prescreen_coverage", [*models, *corpus_args, "--n-eval", "4",
+    "--rerank-top", "5", "--caps", "4", "--out", str(tmp / "p.json")])["caps"]
+assert run("eval_torch_rerank_top", [*models, *corpus_args, "--n-eval", "4",
+    "--rerank-tops", "5", "--cascade", "4,2", "--out", str(tmp / "r.json")])["results"]
+assert run("eval_torch_query_classes", [*models, *corpus_args, "--n-eval", "4",
+    "--n-per-class", "2", "--rerank-top", "5", "--out", str(tmp / "q")])["results"]
+assert run("measure_torch_int8_effects", [*models, *corpus_args, "--n-eval", "4",
+    "--n-queries", "4", "--out", str(tmp / "i.json")])["reranker_int8_drift"]
+assert run("eval_torch_retrieval", ["--n", "300", "--dim", "16", "--queries", "8"])["hybrid"]
+assert run("probe_torch_reranker_doclen", ["--checkpoints", str(model_dir), *corpus_args,
+    "--n-eval", "4", "--body-sentences", "1", "--queries", "4", "--caps", "4"])["results"]
+print(json.dumps(sorted(m for m in FORBIDDEN if m in sys.modules)))
+"""
+
+
+def test_library_surface_and_tools_import_no_forbidden_module():
+    """Every lazy name of the port's top level and of its ``index``,
+    ``models``, ``ops``, ``search`` and ``util`` resolves, a device trace is
+    written on the CPU, and each quality and calibration tool
+    (scripts/calibrate_torch_cascade.py, measure_torch_prescreen_coverage.py,
+    eval_torch_rerank_top.py, eval_torch_query_classes.py,
+    measure_torch_int8_effects.py, eval_torch_retrieval.py,
+    probe_torch_reranker_doclen.py) runs at a tiny size on a random
+    checkpoint: neither JAX nor the JAX package nor any package the card's
+    machine lacks is loaded."""
+    code = f"FORBIDDEN = {FORBIDDEN!r}\n" + TOOLS
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert loaded == [], f"the port's library surface or tools imported {loaded}"

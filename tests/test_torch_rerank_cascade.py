@@ -317,3 +317,40 @@ def test_stage_one_keep_sets_at_the_chain_s_cliff_equal_jax_s():
     for row, g, w in zip(rows, got, want):
         np.testing.assert_allclose(g, w, atol=TOL)
         assert keep(g) == keep(w) == row["keep"]
+
+
+def test_calibration_cap_24_rankings_equal_jax_s():
+    """ROADMAP C11. At cap 24 the 200k chain's calibration on the card
+    keeps the full-length top-3 in 36 of 192 groups where the committed TPU
+    row has 39 (containment_top3 0.1875 against 0.2031). The card's, the
+    port's and the JAX client's float32 rankings agreed on every group
+    (scripts/compare_torch_cap_rankings.py); on the committed record's
+    groups closest to turning, the port's and JAX's full-length top-3 and
+    cap-24 keep sets are the record's."""
+    record = json.loads(
+        (REPO / "runs" / "scale200k" / "cascade_calibration_cap24_divergence.json").read_text()
+    )
+    cap = record["caps"]["24"]
+    assert cap["groups_differing_from_jax"] == {"card": [], "port": []}
+    assert cap["card_row"] == cap["jax_f32_cpu_row"] == cap["port_cpu_row"]
+    path = REPO / record["reranker"]
+    port = RerankerClient(str(path), max_length=record["rr_max_length"], dtype=torch.float32,
+                          device="cpu")
+    jax_client = JaxReranker(str(path), model_dir=path, max_length=record["rr_max_length"],
+                             dtype="float32")
+    rows = cap["closest"]
+    args = ([r["query"] for r in rows], [r["documents"] for r in rows])
+    keep = record["keep"]
+
+    def decisions(full, truncated):
+        order = sorted(range(len(full)), key=lambda j: full[j], reverse=True)
+        kept = sorted(range(len(truncated)), key=lambda j: truncated[j], reverse=True)[:keep]
+        return {"full_top3": order[:3], "keep_set": sorted(kept)}
+
+    got = zip(port.rerank_grouped_sync(*args), port.rerank_grouped_sync(*args, suffix_cap=24))
+    want = zip(jax_client.rerank_grouped_sync(*args),
+               jax_client.rerank_grouped_sync(*args, suffix_cap=24))
+    for row, g, w in zip(rows, got, want):
+        np.testing.assert_allclose(g[0], w[0], atol=TOL)
+        np.testing.assert_allclose(g[1], w[1], atol=TOL)
+        assert decisions(*g) == decisions(*w) == cap["jax_rankings"][row["index"]]
