@@ -1,0 +1,7 @@
+"""Mean ms a batch in the engine's ``encode`` stage (``StageTimings``, host clock)."""
+
+from harness.readers import stage_mean_ms
+
+
+def read(ctx):
+    return stage_mean_ms(ctx, "encode")
