@@ -33,16 +33,21 @@ CUDA unless the environment asks for the CPU
 
 import argparse
 import asyncio
+import collections
 import concurrent.futures
+import itertools
 import json
 import logging
+import math
 import sys
 import threading
+import time
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
 from lean_explore_tpu_torch.config import Config
+from lean_explore_tpu_torch.util.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +84,8 @@ class _PendingSearch:
     future: concurrent.futures.Future = field(
         default_factory=concurrent.futures.Future
     )
+    request_id: int = 0
+    submitted_ns: int = field(default_factory=time.perf_counter_ns)
 
     @property
     def group_key(self) -> tuple:
@@ -116,6 +123,10 @@ class SearchBatcher:
         self.requests_served = 0
         self.engine_seconds = 0.0  # time inside search_batch (device pipelines)
         self.batch_sizes: list[int] = []  # last 1000 drain group sizes
+        # Last 1000 requests' (request id, root span id of their engine
+        # batch, ms from submit_search to the start of that batch).
+        self.queue_waits: collections.deque = collections.deque(maxlen=1000)
+        self._request_ids = itertools.count(1)
         self._queue: asyncio.Queue | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._thread: threading.Thread | None = None
@@ -153,13 +164,24 @@ class SearchBatcher:
         packages: tuple[str, ...] | None,
         rerank_explicit: bool = False,
     ) -> concurrent.futures.Future:
-        pending = _PendingSearch(query, limit, rerank_top, packages, rerank_explicit)
+        pending = _PendingSearch(
+            query, limit, rerank_top, packages, rerank_explicit,
+            request_id=next(self._request_ids),
+        )
         self._loop.call_soon_threadsafe(self._queue.put_nowait, pending)
         return pending.future
 
     def submit_coroutine(self, coro) -> concurrent.futures.Future:
         """Run an arbitrary Service coroutine on the batcher loop."""
         return asyncio.run_coroutine_threadsafe(coro, self._loop)
+
+    def queue_wait_ms(self, percentile: float) -> float | None:
+        """A percentile (nearest rank) of the queue waits in the window, or
+        None before the first request is served."""
+        waits = sorted(wait for _, _, wait in tuple(self.queue_waits))
+        if not waits:
+            return None
+        return waits[max(math.ceil(percentile / 100.0 * len(waits)) - 1, 0)]
 
     # ------------------------------------------------------------ batch loop
     async def _batcher(self) -> None:
@@ -197,73 +219,81 @@ class SearchBatcher:
         packages: tuple[str, ...] | None,
         group: list[_PendingSearch],
     ) -> None:
-        # Default-rerank requests degrade to no-rerank on model-free
-        # (lexical/dense-only) deployments; EXPLICIT rerank_top asks still
-        # error honestly. Once latched, skip the doomed first attempt.
-        if self._rerank_unavailable and rerank_top:
-            non_explicit = [p for p in group if not p.rerank_explicit]
+        """One engine batch for ``group`` in a ``batcher/group`` span, the
+        root of the batch's spans; each request's wait is kept in
+        ``queue_waits`` under that root."""
+        with span("batcher/group") as batch_span:
+            started_ns = time.perf_counter_ns()
             for pending in group:
-                if pending.rerank_explicit and not pending.future.done():
-                    pending.future.set_exception(
-                        FileNotFoundError("reranker checkpoint unavailable")
-                    )
-            if not non_explicit:
-                return
-            group, rerank_top = non_explicit, 0
-        queries = [p.query for p in group]
-        # One engine call serves every limit in the group: limit is
-        # host-side result truncation, so run at the group max and slice
-        # per request below.
-        max_limit = max(p.limit for p in group)
-        kwargs = dict(
-            limit=max_limit,
-            rerank_top=rerank_top,
-            packages=list(packages) if packages else None,
-        )
-        t_start = self._loop.time()
-        try:
-            try:
-                responses = await self.service.search_batch(queries, **kwargs)
-            except FileNotFoundError as error:
-                if not rerank_top:
-                    raise
-                logger.warning(
-                    "rerank unavailable (%s); serving default requests "
-                    "without rerank from now on",
-                    error,
-                )
-                self._rerank_unavailable = True
+                wait_ms = (started_ns - pending.submitted_ns) / 1e6
+                self.queue_waits.append((pending.request_id, batch_span.root, wait_ms))
+            # Default-rerank requests degrade to no-rerank on model-free
+            # (lexical/dense-only) deployments; EXPLICIT rerank_top asks still
+            # error honestly. Once latched, skip the doomed first attempt.
+            if self._rerank_unavailable and rerank_top:
+                non_explicit = [p for p in group if not p.rerank_explicit]
                 for pending in group:
                     if pending.rerank_explicit and not pending.future.done():
-                        pending.future.set_exception(error)
-                group = [p for p in group if not p.rerank_explicit]
-                if not group:
+                        pending.future.set_exception(
+                            FileNotFoundError("reranker checkpoint unavailable")
+                        )
+                if not non_explicit:
                     return
-                queries = [p.query for p in group]
-                responses = await self.service.search_batch(
-                    queries, **{**kwargs, "rerank_top": 0}
-                )
-            self.batches_run += 1
-            self.requests_served += len(group)
-            self.engine_seconds += self._loop.time() - t_start
-            self.batch_sizes.append(len(group))
-            del self.batch_sizes[:-1000]
-            for pending, response in zip(group, responses):
-                if pending.future.done():
-                    continue  # cancelled while the batch ran
-                if pending.limit < len(response.results):
-                    response = response.model_copy(
-                        update={
-                            "results": response.results[: pending.limit],
-                            "count": pending.limit,
-                        }
+                group, rerank_top = non_explicit, 0
+            queries = [p.query for p in group]
+            # One engine call serves every limit in the group: limit is
+            # host-side result truncation, so run at the group max and slice
+            # per request below.
+            max_limit = max(p.limit for p in group)
+            kwargs = dict(
+                limit=max_limit,
+                rerank_top=rerank_top,
+                packages=list(packages) if packages else None,
+            )
+            t_start = self._loop.time()
+            try:
+                try:
+                    responses = await self.service.search_batch(queries, **kwargs)
+                except FileNotFoundError as error:
+                    if not rerank_top:
+                        raise
+                    logger.warning(
+                        "rerank unavailable (%s); serving default requests "
+                        "without rerank from now on",
+                        error,
                     )
-                pending.future.set_result(response)
-        except Exception as error:  # noqa: BLE001 — server boundary
-            logger.exception("search batch failed")
-            for pending in group:
-                if not pending.future.done():
-                    pending.future.set_exception(error)
+                    self._rerank_unavailable = True
+                    for pending in group:
+                        if pending.rerank_explicit and not pending.future.done():
+                            pending.future.set_exception(error)
+                    group = [p for p in group if not p.rerank_explicit]
+                    if not group:
+                        return
+                    queries = [p.query for p in group]
+                    responses = await self.service.search_batch(
+                        queries, **{**kwargs, "rerank_top": 0}
+                    )
+                self.batches_run += 1
+                self.requests_served += len(group)
+                self.engine_seconds += self._loop.time() - t_start
+                self.batch_sizes.append(len(group))
+                del self.batch_sizes[:-1000]
+                for pending, response in zip(group, responses):
+                    if pending.future.done():
+                        continue  # cancelled while the batch ran
+                    if pending.limit < len(response.results):
+                        response = response.model_copy(
+                            update={
+                                "results": response.results[: pending.limit],
+                                "count": pending.limit,
+                            }
+                        )
+                    pending.future.set_result(response)
+            except Exception as error:  # noqa: BLE001 — server boundary
+                logger.exception("search batch failed")
+                for pending in group:
+                    if not pending.future.done():
+                        pending.future.set_exception(error)
 
 
 # ------------------------------------------------------------------ handler
@@ -312,6 +342,8 @@ def make_handler(batcher: SearchBatcher, api_key: str | None, base_path: str):
                             / max(batcher.batches_run, 1),
                             1,
                         ),
+                        "queue_wait_ms_p50": batcher.queue_wait_ms(50),
+                        "queue_wait_ms_p95": batcher.queue_wait_ms(95),
                     },
                 )
                 return

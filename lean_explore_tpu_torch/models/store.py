@@ -24,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
+from lean_explore_tpu_torch.util.profiling import span
+
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS declarations (
     id INTEGER PRIMARY KEY,
@@ -210,7 +212,7 @@ class DeclarationStore:
     def set_embeddings(
         self, items: Iterable[tuple[int, Sequence[float] | np.ndarray]]
     ) -> None:
-        with self._lock, self._conn:
+        with span("store/set_embeddings"), self._lock, self._conn:
             self._conn.executemany(
                 "UPDATE declarations SET informalization_embedding = ? WHERE id = ?",
                 [(pack_embedding(vec), decl_id) for decl_id, vec in items],

@@ -23,6 +23,7 @@ from lean_explore_tpu_torch.models.hf_loader import load_params
 from lean_explore_tpu_torch.models.tokenizer import encode_batch, load_tokenizer
 from lean_explore_tpu_torch.parallel.rerank import rerank_data_mesh, replicate_params
 from lean_explore_tpu_torch.util.platform import resolve_device
+from lean_explore_tpu_torch.util.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -236,23 +237,25 @@ class EmbeddingClient:
         out = []
         for start in range(0, len(prompted), self.batch_size):
             chunk = prompted[start : start + self.batch_size]
-            with self._tokenizer_lock:
+            with span("encode/tokenize"), self._tokenizer_lock:
                 batch = encode_batch(
                     self.tokenizer,
                     chunk,
                     max_length=self.max_length,
                     append_eos=self.append_eos,
                 )
-            emb = self._embed_mesh(
-                np.asarray(batch.input_ids),
-                np.asarray(batch.attention_mask).sum(axis=1).astype(np.int32),
-            )
+            with span("encode/forward", device=self.device):
+                emb = self._embed_mesh(
+                    np.asarray(batch.input_ids),
+                    np.asarray(batch.attention_mask).sum(axis=1).astype(np.int32),
+                )
             out.append(emb[: batch.n_valid])
         return out[0] if len(out) == 1 else torch.cat(out, dim=0)
 
     def embed_sync(self, texts: list[str], is_query: bool = False) -> np.ndarray:
         """Embed texts -> float32 [len(texts), H], L2-normalized."""
-        return self.embed_device(texts, is_query).cpu().numpy()
+        with span("embed_sync"):
+            return self.embed_device(texts, is_query).cpu().numpy()
 
     async def embed(self, texts: list[str], is_query: bool = False) -> EmbeddingResponse:
         embeddings = await asyncio.to_thread(self.embed_sync, texts, is_query)

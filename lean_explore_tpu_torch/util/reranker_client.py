@@ -12,6 +12,7 @@ fused q/k/v and gate/up projections (LEAN_EXPLORE_FUSED_QKV=1).
 """
 
 import asyncio
+import contextlib
 import logging
 import os
 import threading
@@ -36,6 +37,7 @@ from lean_explore_tpu_torch.parallel.rerank import (
 )
 from lean_explore_tpu_torch.util.embedding_client import resolve_model_dir
 from lean_explore_tpu_torch.util.platform import resolve_device
+from lean_explore_tpu_torch.util.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -254,7 +256,10 @@ class RerankerClient:
 
         Buckets of one (B, T) shape go through ``rerank_scores_chained``
         CHAIN at a time, the rest through ``rerank_scores``; every call is
-        issued before the one copy back to the host.
+        issued before the one copy back to the host. Each bucket is counted
+        as the grouped path counts its buckets (``rerank/pack``), with its
+        pairs as suffixes and no prefix; ``rerank/device`` runs from the
+        first launch to the last, as there.
         """
         groups: dict[tuple, list[int]] = {}
         for idx, batch in enumerate(encoded):
@@ -262,23 +267,34 @@ class RerankerClient:
         kw = dict(token_true=int(self.token_true_id), token_false=int(self.token_false_id))
         order: list[int] = []
         outs: list[torch.Tensor] = []
-        for indices in groups.values():
-            full = len(indices) // CHAIN * CHAIN
-            for base in range(0, full, CHAIN):
-                members = indices[base : base + CHAIN]
-                ids = np.stack([encoded[i].input_ids for i in members])
-                mask = np.stack([encoded[i].attention_mask for i in members])
-                outs.append(qwen3_mod.rerank_scores_chained(
-                    self.params, self.config, self._tensor(ids), self._tensor(mask), **kw
-                ).reshape(-1))
-                order.extend(members)
-            for idx in indices[full:]:
-                batch = encoded[idx]
-                outs.append(qwen3_mod.rerank_scores(
-                    self.params, self.config, self._tensor(batch.input_ids),
-                    self._tensor(batch.attention_mask), **kw,
-                ))
-                order.append(idx)
+        with contextlib.ExitStack() as launched:
+            for (rows, length), indices in groups.items():
+                with span("rerank/pack"):
+                    count("docs", sum(encoded[i].n_valid for i in indices))
+                    count("docs_padded", rows * len(indices))
+                    count("suffix_tokens", sum(
+                        int(encoded[i].attention_mask[: encoded[i].n_valid].sum())
+                        for i in indices
+                    ))
+                    count("suffix_tokens_padded", rows * length * len(indices))
+                if not outs:
+                    launched.enter_context(span("rerank/device", device=self.device))
+                full = len(indices) // CHAIN * CHAIN
+                for base in range(0, full, CHAIN):
+                    members = indices[base : base + CHAIN]
+                    ids = np.stack([encoded[i].input_ids for i in members])
+                    mask = np.stack([encoded[i].attention_mask for i in members])
+                    outs.append(qwen3_mod.rerank_scores_chained(
+                        self.params, self.config, self._tensor(ids), self._tensor(mask), **kw
+                    ).reshape(-1))
+                    order.extend(members)
+                for idx in indices[full:]:
+                    batch = encoded[idx]
+                    outs.append(qwen3_mod.rerank_scores(
+                        self.params, self.config, self._tensor(batch.input_ids),
+                        self._tensor(batch.attention_mask), **kw,
+                    ))
+                    order.append(idx)
         host = torch.cat(outs).cpu().numpy()
         results: list[np.ndarray | None] = [None] * len(encoded)
         start = 0
@@ -298,14 +314,15 @@ class RerankerClient:
         if batch_size is not None and batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         step = batch_size if batch_size is not None else self.batch_size
-        pairs = [self._format_pair(query, d) for d in documents]
-        with self._tokenizer_lock:
-            encoded = [
-                encode_batch(
-                    self.tokenizer, pairs[start : start + step], max_length=self.max_length
-                )
-                for start in range(0, len(pairs), step)
-            ]
+        with span("rerank/tokenize"):
+            pairs = [self._format_pair(query, d) for d in documents]
+            with self._tokenizer_lock:
+                encoded = [
+                    encode_batch(
+                        self.tokenizer, pairs[start : start + step], max_length=self.max_length
+                    )
+                    for start in range(0, len(pairs), step)
+                ]
         scores: list[float] = []
         for batch, bucket in zip(encoded, self._score_encoded(encoded)):
             scores.extend(float(s) for s in bucket[: batch.n_valid])
@@ -324,19 +341,20 @@ class RerankerClient:
             raise ValueError("queries and documents must align")
         if not documents:
             return []
-        pairs = [self._format_pair(q, d) for q, d in zip(queries, documents)]
-        order = sorted(range(len(pairs)), key=lambda i: len(pairs[i]))
-        chunks = [
-            order[start : start + self.batch_size]
-            for start in range(0, len(order), self.batch_size)
-        ]
-        with self._tokenizer_lock:
-            encoded = [
-                encode_batch(
-                    self.tokenizer, [pairs[i] for i in chunk], max_length=self.max_length
-                )
-                for chunk in chunks
+        with span("rerank/tokenize"):
+            pairs = [self._format_pair(q, d) for q, d in zip(queries, documents)]
+            order = sorted(range(len(pairs)), key=lambda i: len(pairs[i]))
+            chunks = [
+                order[start : start + self.batch_size]
+                for start in range(0, len(order), self.batch_size)
             ]
+            with self._tokenizer_lock:
+                encoded = [
+                    encode_batch(
+                        self.tokenizer, [pairs[i] for i in chunk], max_length=self.max_length
+                    )
+                    for chunk in chunks
+                ]
         scores = [0.0] * len(pairs)
         for chunk, bucket in zip(chunks, self._score_encoded(encoded)):
             for i, s in zip(chunk, bucket):
@@ -363,32 +381,35 @@ class RerankerClient:
         their stage-2 scores; pruned ones keep their stage-1 order in a thin
         band just under the worst rescored score (``floor - 1e-4 (j + 1)``),
         since truncated and full-length scores are not on one scale. The
-        order uses Python's stable sort on host floats, as JAX does.
+        order uses Python's stable sort on host floats, as JAX does. Spans:
+        ``rerank/stage1``, ``rerank/select`` (the sort between the stages)
+        and ``rerank/stage2``.
         """
         if keep <= 0 or stage1_doc_tokens <= 0:
             raise ValueError("keep and stage1_doc_tokens must be positive")
         need = [i for i, docs in enumerate(docs_grouped) if len(docs) > keep]
         stage1: dict[int, list[float]] = {}
         if need:
-            scored = self.rerank_grouped_sync(
-                [queries[i] for i in need],
-                [docs_grouped[i] for i in need],
-                suffix_cap=stage1_doc_tokens,
-            )
+            with span("rerank/stage1"):
+                scored = self.rerank_grouped_sync(
+                    [queries[i] for i in need],
+                    [docs_grouped[i] for i in need],
+                    suffix_cap=stage1_doc_tokens,
+                )
             stage1 = dict(zip(need, scored))
         slots: list[list[int]] = []
-        for gi, docs in enumerate(docs_grouped):
-            if gi in stage1:
-                top = sorted(
-                    range(len(docs)), key=lambda i: stage1[gi][i], reverse=True
-                )[:keep]
-            else:
-                top = list(range(len(docs)))
-            slots.append(top)
-        stage2 = self.rerank_grouped_sync(
-            queries,
-            [[docs[i] for i in top] for docs, top in zip(docs_grouped, slots)],
-        )
+        with span("rerank/select"):
+            for gi, docs in enumerate(docs_grouped):
+                if gi in stage1:
+                    top = sorted(
+                        range(len(docs)), key=lambda i: stage1[gi][i], reverse=True
+                    )[:keep]
+                else:
+                    top = list(range(len(docs)))
+                slots.append(top)
+            kept_docs = [[docs[i] for i in top] for docs, top in zip(docs_grouped, slots)]
+        with span("rerank/stage2"):
+            stage2 = self.rerank_grouped_sync(queries, kept_docs)
         out = [
             list(stage1[gi]) if gi in stage1 else [0.0] * len(docs)
             for gi, docs in enumerate(docs_grouped)
@@ -446,45 +467,46 @@ class RerankerClient:
         fallback_d: list[str] = []
         fallback_slots: list[tuple[int, int]] = []
 
-        for gi, (query, docs) in enumerate(zip(queries, docs_grouped)):
-            if not docs:
-                continue
-            pairs = [self._format_pair(query, d) for d in docs]
-            with self._tokenizer_lock:
-                token_lists = self.tokenizer(
-                    pairs, truncation=True, max_length=self.max_length
-                )["input_ids"]
-            # Longest common token prefix: one slice compare per row in the
-            # common case, bisection on a mismatch.
-            row0 = token_lists[0]
-            shared = len(row0)
-            for row in token_lists[1:]:
-                limit = min(shared, len(row))
-                if row[:limit] == row0[:limit]:
-                    shared = limit
+        with span("rerank/tokenize"):
+            for gi, (query, docs) in enumerate(zip(queries, docs_grouped)):
+                if not docs:
                     continue
-                lo, hi = 0, limit
-                while lo < hi:
-                    mid = (lo + hi + 1) // 2
-                    if row[:mid] == row0[:mid]:
-                        lo = mid
-                    else:
-                        hi = mid - 1
-                shared = lo
-                if shared == 0:
-                    break
-            shared = min(shared, min(len(row) for row in token_lists) - 1)
-            if shared < self.MIN_SHARED_PREFIX:
-                for pos, doc in enumerate(docs):
-                    fallback_q.append(query)
-                    fallback_d.append(doc)
-                    fallback_slots.append((gi, pos))
-                results[gi] = [0.0] * len(docs)
-                continue
-            suffixes = [row[shared:] for row in token_lists]
-            if suffix_cap is not None:
-                suffixes = [sfx[:suffix_cap] for sfx in suffixes]
-            records.append((gi, row0[:shared], suffixes))
+                pairs = [self._format_pair(query, d) for d in docs]
+                with self._tokenizer_lock:
+                    token_lists = self.tokenizer(
+                        pairs, truncation=True, max_length=self.max_length
+                    )["input_ids"]
+                # Longest common token prefix: one slice compare per row in the
+                # common case, bisection on a mismatch.
+                row0 = token_lists[0]
+                shared = len(row0)
+                for row in token_lists[1:]:
+                    limit = min(shared, len(row))
+                    if row[:limit] == row0[:limit]:
+                        shared = limit
+                        continue
+                    lo, hi = 0, limit
+                    while lo < hi:
+                        mid = (lo + hi + 1) // 2
+                        if row[:mid] == row0[:mid]:
+                            lo = mid
+                        else:
+                            hi = mid - 1
+                    shared = lo
+                    if shared == 0:
+                        break
+                shared = min(shared, min(len(row) for row in token_lists) - 1)
+                if shared < self.MIN_SHARED_PREFIX:
+                    for pos, doc in enumerate(docs):
+                        fallback_q.append(query)
+                        fallback_d.append(doc)
+                        fallback_slots.append((gi, pos))
+                    results[gi] = [0.0] * len(docs)
+                    continue
+                suffixes = [row[shared:] for row in token_lists]
+                if suffix_cap is not None:
+                    suffixes = [sfx[:suffix_cap] for sfx in suffixes]
+                records.append((gi, row0[:shared], suffixes))
 
         pad_id = self.tokenizer.pad_token_id
         if pad_id is None:
@@ -499,40 +521,59 @@ class RerankerClient:
             )
             by_bucket.setdefault(s_bucket, []).append(rec)
 
+        # One ``rerank/pack`` span a bucket, counting its real and padded
+        # groups, documents and tokens; ``rerank/device`` from the first
+        # launch to the last (later buckets pack inside it).
         fetches = []
-        for s_bucket, recs in sorted(by_bucket.items()):
-            chunk = min(GROUP_CHUNK, bucket_batch(len(recs)))
-            # G splits evenly over the data devices, so it pads to a
-            # multiple of data x chunk; pad groups are discarded below.
-            g_align = chunk * self.mesh.shape["data"]
-            g_pad = -(-len(recs) // g_align) * g_align
-            d_pad = max(len(r[2]) for r in recs)
-            p_pad = bucket_length(max(len(r[1]) for r in recs), self.max_length)
-            prefix_ids = np.full((g_pad, p_pad), pad_id, dtype=np.int32)
-            prefix_mask = np.zeros((g_pad, p_pad), dtype=np.int32)
-            suffix_ids = np.full((g_pad, d_pad, s_bucket), pad_id, dtype=np.int32)
-            suffix_mask = np.zeros((g_pad, d_pad, s_bucket), dtype=np.int32)
-            pos_offset = np.zeros((g_pad,), dtype=np.int32)
-            for row, (_gi, head, suffixes) in enumerate(recs):
-                shared = len(head)
-                prefix_ids[row, :shared] = head
-                prefix_mask[row, :shared] = 1
-                pos_offset[row] = shared
-                for di, sfx in enumerate(suffixes):
-                    sfx = sfx[:s_bucket]
-                    suffix_ids[row, di, : len(sfx)] = sfx
-                    suffix_mask[row, di, : len(sfx)] = 1
-            # Pad rows/docs keep one valid token so softmax and pooling
-            # indices stay benign; their scores are discarded.
-            prefix_mask[len(recs) :, 0] = 1
-            flat_mask = suffix_mask.reshape(g_pad * d_pad, s_bucket)
-            flat_mask[~flat_mask.any(axis=1), 0] = 1
+        with contextlib.ExitStack() as launched:
+            for s_bucket, recs in sorted(by_bucket.items()):
+                with span("rerank/pack"):
+                    chunk = min(GROUP_CHUNK, bucket_batch(len(recs)))
+                    # G splits evenly over the data devices, so it pads to a
+                    # multiple of data x chunk; pad groups are discarded below.
+                    g_align = chunk * self.mesh.shape["data"]
+                    g_pad = -(-len(recs) // g_align) * g_align
+                    d_pad = max(len(r[2]) for r in recs)
+                    p_pad = bucket_length(max(len(r[1]) for r in recs), self.max_length)
+                    prefix_ids = np.full((g_pad, p_pad), pad_id, dtype=np.int32)
+                    prefix_mask = np.zeros((g_pad, p_pad), dtype=np.int32)
+                    suffix_ids = np.full((g_pad, d_pad, s_bucket), pad_id, dtype=np.int32)
+                    suffix_mask = np.zeros((g_pad, d_pad, s_bucket), dtype=np.int32)
+                    pos_offset = np.zeros((g_pad,), dtype=np.int32)
+                    n_docs = n_prefix = n_suffix = 0
+                    for row, (_gi, head, suffixes) in enumerate(recs):
+                        shared = len(head)
+                        prefix_ids[row, :shared] = head
+                        prefix_mask[row, :shared] = 1
+                        pos_offset[row] = shared
+                        n_prefix += shared
+                        n_docs += len(suffixes)
+                        for di, sfx in enumerate(suffixes):
+                            sfx = sfx[:s_bucket]
+                            suffix_ids[row, di, : len(sfx)] = sfx
+                            suffix_mask[row, di, : len(sfx)] = 1
+                            n_suffix += len(sfx)
+                    # Pad rows/docs keep one valid token so softmax and pooling
+                    # indices stay benign; their scores are discarded.
+                    prefix_mask[len(recs) :, 0] = 1
+                    flat_mask = suffix_mask.reshape(g_pad * d_pad, s_bucket)
+                    flat_mask[~flat_mask.any(axis=1), 0] = 1
+                    count("groups", len(recs))
+                    count("groups_padded", g_pad)
+                    count("docs", n_docs)
+                    count("docs_padded", g_pad * d_pad)
+                    count("prefix_tokens", n_prefix)
+                    count("prefix_tokens_padded", g_pad * p_pad)
+                    count("suffix_tokens", n_suffix)
+                    count("suffix_tokens_padded", g_pad * d_pad * s_bucket)
 
-            scores = self._sharded_scorer(chunk)(
-                self._replicas, prefix_ids, prefix_mask, suffix_ids, suffix_mask,
-                pos_offset,
-            )
-            fetches.append((recs, scores))
+                if not fetches:
+                    launched.enter_context(span("rerank/device", device=self.device))
+                scores = self._sharded_scorer(chunk)(
+                    self._replicas, prefix_ids, prefix_mask, suffix_ids, suffix_mask,
+                    pos_offset,
+                )
+                fetches.append((recs, scores))
         # Every bucket is issued before the first copy back.
         for recs, scores in fetches:
             host = scores.cpu().numpy()

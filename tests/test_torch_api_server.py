@@ -240,7 +240,8 @@ def test_healthz(servers):
     got_status, got = http_get(port.url + "/healthz", None)
     assert got_status == want_status == 200
     assert got["status"] == want["status"] == "ok"
-    assert set(got) == set(want)
+    # the port also reports the batcher's queue wait
+    assert set(got) == set(want) | {"queue_wait_ms_p50", "queue_wait_ms_p95"}
 
 
 def test_coalesced_burst_is_one_engine_batch_sliced_per_request(setup):
